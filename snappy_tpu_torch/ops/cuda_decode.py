@@ -1,0 +1,76 @@
+"""Block decoder on the card: the wrapper of ``csrc/decode_blocks.cu``.
+
+The counterpart of ``snappy_tpu/ops/pallas_decode.py``, with the same
+contract: ``decode_blocks(comp, clens, ulens, out_size)`` decodes B
+headerless tag streams, ``comp`` uint8[B, C] (C >= clen + COMP_PAD),
+``clens`` and ``ulens`` int32[B], into (out uint8[B, out_size], ok bool[B],
+total int32[B]). Rules in ``ops/decode_torch.py``.
+
+A CUDA tensor launches the kernel on the current stream and returns
+without synchronising, or raises. Its lengths are not read on the host: a
+row with ``ulens`` outside [0, out_size] or ``clens`` outside [0, C - COMP_PAD]
+comes back not ok, all zero. A CPU tensor with such a row raises; otherwise
+it goes to the plain version, ``decode_torch.decode_blocks``. No other
+device is taken.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import decode_torch, kernels
+from .decode_torch import COMP_PAD
+
+# Kernel launches since import (or since a caller reset it to 0).
+launches = 0
+
+
+def _check_args(comp, clens, ulens, out_size: int) -> None:
+    if comp.dtype != torch.uint8 or comp.dim() != 2:
+        raise TypeError(f"comp must be uint8[B, C], got {comp.dtype}{list(comp.shape)}")
+    b, c = comp.shape
+    for name, t in (("clens", clens), ("ulens", ulens)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (b,):
+            raise TypeError(f"{name} must be int32[{b}], got {t.dtype}{list(t.shape)}")
+        if t.device != comp.device:
+            raise ValueError(f"{name} is on {t.device}, comp on {comp.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not comp.is_contiguous():
+        raise ValueError("comp must be contiguous")
+    if c <= COMP_PAD:
+        raise ValueError(f"comp rows must be wider than COMP_PAD={COMP_PAD}")
+    if out_size < 1:
+        raise ValueError("out_size must be >= 1")
+    # Reading the lengths of a CUDA tensor would wait for the stream; there
+    # the kernel checks them itself and marks such a row not ok.
+    if comp.device.type == "cpu" and b and bool(
+        ((ulens < 0) | (ulens > out_size) | (clens < 0) | (clens > c - COMP_PAD)).any()
+    ):
+        raise ValueError(f"need 0 <= ulens <= out_size={out_size} and 0 <= clens <= C-{COMP_PAD}")
+
+
+def decode_blocks(comp: torch.Tensor, clens: torch.Tensor, ulens: torch.Tensor, out_size: int):
+    """Decode B headerless tag streams; see the module docstring."""
+    global launches
+    _check_args(comp, clens, ulens, out_size)
+    if comp.device.type == "cpu":
+        return decode_torch.decode_blocks(comp, clens, ulens, out_size)
+    if comp.device.type != "cuda":
+        raise ValueError(f"no block decoder for device {comp.device}")
+    b, c = comp.shape
+    out = torch.empty((b, out_size), dtype=torch.uint8, device=comp.device)
+    ok = torch.empty(b, dtype=torch.bool, device=comp.device)
+    total = torch.empty(b, dtype=torch.int32, device=comp.device)
+    if b == 0:
+        return out, ok, total
+    lib = kernels.load()
+    with torch.cuda.device(comp.device):
+        rc = lib.snappy_cuda_decode_blocks(
+            comp.data_ptr(), clens.data_ptr(), ulens.data_ptr(), b, c, out_size,
+            out.data_ptr(), ok.data_ptr(), total.data_ptr(),
+            torch.cuda.current_stream(comp.device).cuda_stream,
+        )
+    kernels.check(rc, "decode_blocks launch")
+    launches += 1
+    return out, ok, total

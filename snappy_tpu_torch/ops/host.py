@@ -1,0 +1,106 @@
+"""Host driver of raw-stream decode on one device.
+
+The counterpart of ``snappy_tpu/ops/host.py:40-133``. The host parses the
+varint header, the native ``scan_blocks`` cuts the tag stream into segments
+of at most 128 KiB of output at tag boundaries, and the block decoder runs
+all segments in one batched launch. A stream that ``scan_blocks`` declines
+goes to the same decoder as one headerless block. On a CUDA device that is
+the kernel, which has no size limit; on the CPU it is the plain version,
+whose memory grows with the stream, so there it is refused above
+``decode_torch.RAW_WHOLE_LIMIT`` compressed bytes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import varint
+from ..core.errors import CorruptInputError
+from ..native import runtime as nat
+from ..utils.profiling import trace_annotation
+from . import decode_torch
+from .decode_torch import COMP_PAD
+from .select import block_decoder
+
+_I32_MAX = (1 << 31) - 1
+
+
+def _as_np(data) -> np.ndarray:
+    if isinstance(data, np.ndarray):
+        if data.dtype != np.uint8:
+            raise TypeError(f"expected uint8 array, got {data.dtype}")
+        return data
+    if isinstance(data, str):
+        data = data.encode("utf-8")
+    return np.frombuffer(memoryview(data), dtype=np.uint8)
+
+
+def pack_rows(buf: np.ndarray, starts: np.ndarray, clens: np.ndarray) -> np.ndarray:
+    """Copy the ragged byte ranges ``buf[starts[i] : starts[i] + clens[i]]``
+    into the rows of a zero-padded uint8[n, C] batch, with C the widest
+    range plus COMP_PAD rounded up to 16 bytes."""
+    width = -(-(int(clens.max()) + COMP_PAD) // 16) * 16
+    rows = np.zeros((len(starts), width), np.uint8)
+    for i, (s, n) in enumerate(zip(starts.tolist(), clens.tolist())):
+        rows[i, :n] = buf[s : s + n]
+    return rows
+
+
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """``a`` as a tensor on ``device``. A CUDA copy goes through pinned
+    memory and does not wait for work already queued on the stream."""
+    t = torch.from_numpy(a)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def uncompress(data, device="cuda") -> bytes:
+    """Decode a raw Snappy stream on ``device``. Raises CorruptInputError
+    on a corrupt stream."""
+    comp = _as_np(data)
+    ulen, start = varint.parse32(comp, 0)
+    body = comp[start:]
+    scan = nat.scan_blocks(body, ulen)  # raises CorruptInputError
+    if scan is None:
+        # The scan stopped early, so the header is not yet checked against
+        # the body: no tag yields more than 64 bytes from 3 (COPY_2).
+        if 3 * ulen > 64 * len(body):
+            raise CorruptInputError("header claims more output than the stream can hold")
+        if ulen > _I32_MAX:
+            raise NotImplementedError("unsegmentable raw stream over 2 GiB")
+        if torch.device(device).type == "cpu" and len(body) > decode_torch.RAW_WHOLE_LIMIT:
+            raise NotImplementedError(
+                "unsegmentable raw stream above RAW_WHOLE_LIMIT: the windowed "
+                "plain decoder is not ported; decode it on a CUDA device"
+            )
+        starts, oplens = np.zeros(1, np.int64), np.array([ulen], np.int64)
+    else:
+        starts, oplens = scan
+    if len(starts) == 0:
+        return b""
+    return _uncompress_blocked(body, starts, oplens.astype(np.int64), device)
+
+
+def _uncompress_blocked(body: np.ndarray, starts: np.ndarray, oplens: np.ndarray, device) -> bytes:
+    """Decode the segments ``body[starts[i]:starts[i+1]]``, of ``oplens[i]``
+    output bytes each, in one batched launch, and join them."""
+    clens = np.diff(np.append(starts, len(body)))
+    out_size = -(-max(int(oplens.max()), 1) // 16) * 16
+    comp = pack_rows(body, starts, clens)
+    with trace_annotation("snappy.uncompress_blocked"):
+        out, ok, _ = block_decoder(device)(
+            to_device(comp, device),
+            to_device(clens.astype(np.int32), device),
+            to_device(oplens.astype(np.int32), device),
+            out_size,
+        )
+        ok = ok.cpu().numpy()
+        if not ok.all():
+            raise CorruptInputError("corrupt snappy stream")
+        out = out.cpu().numpy()
+    if (oplens == out_size).all():
+        return out.tobytes()
+    keep = np.arange(out_size)[None, :] < oplens[:, None]
+    return out[keep].tobytes()
