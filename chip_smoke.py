@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive snappy_tpu_torch's read path once on one CUDA GPU (Hopper, sm_90).
+"""Drive snappy_tpu_torch's read and write paths once on one CUDA GPU (Hopper, sm_90).
 
     python3 chip_smoke.py
 
@@ -8,7 +8,7 @@ Run from the root of the repository, with no arguments; it uses one card
 non-zero:
 
   1. device   name, capability (must be 9.0), nvidia-smi name and power limit
-  2. build    the native C++ codec (g++) and the CUDA kernel (nvcc)
+  2. build    the native C++ codec (g++) and the CUDA kernels (nvcc)
   3. kernel   the CUDA block decoder against its plain torch version on one
               batch on the card: 128 corpus blocks of 64 KiB, the corrupt
               battery, RLE blocks, wrong claimed lengths, a trailing byte,
@@ -21,9 +21,24 @@ non-zero:
               stream through uncompress(backend="torch", device="cuda");
               baddata{1,2,3}.snappy must raise CorruptInputError
   6. corrupt  a frame with a flipped crc and one with a damaged block must raise
+  7. encode kernel  the CUDA block encoder against its plain torch version
+              on one batch on the card, for min_profit 2 and 1: 128 corpus
+              blocks, sentinel (ff) rows, RLE rows, lengths 0-3, a match
+              into the zero padding, random bytes, and rows whose blen does
+              not fit the batch, which the kernel refuses
+  8. write slice  the same 64 MiB corpus mix through
+              compress_framed(raw, device="cuda"): the write path's main
+              path, with the encoder's launch count reset just before and
+              read just after; the frame must decode through the port's CUDA
+              decoder and the native one, and equal the frame built from the
+              plain version's rows and the routed blocks' native streams
+  9. density and raw  every corpus file of the density gate encodes no
+              larger than the native greedy encoder; compress(backend=
+              "torch", device="cuda") of the 64 MiB stream and raw_to_frame of
+              a native stream decode back
 
 Before the last line it prints the card's `nvidia-smi` name and power limit
-and one JSON line {"kernels": [...]} with each kernel's launches on the main
+and one JSON line {"kernels": [...]} with each kernel's launches on its main
 path, its largest difference from the plain version, and its time beside
 the plain version's at the main path's shape. Times are informational. The
 last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -49,6 +64,13 @@ MAIN_BYTES = 64 << 20
 CORPUS = [
     "alice29.txt", "html", "urls.10K", "fireworks.jpeg", "paper-100k.pdf",
     "lcet10.txt", "plrabn12.txt", "geo.protodata", "kppkn.gtb", "sample-tweet.json",
+]
+# The files of the per-file density gate (tests/test_tpu_compiled.py).
+DENSITY_FILES = [
+    "alice29.txt", "asyoulik.txt", "html", "html_x_4", "urls.10K",
+    "fireworks.jpeg", "paper-100k.pdf", "lcet10.txt", "plrabn12.txt",
+    "geo.protodata", "kppkn.gtb", "sample-tweet.json", "random1.bin",
+    "random2.bin", "random3.bin", "smallrandom1.bin",
 ]
 
 
@@ -120,8 +142,9 @@ def main() -> int:
     from snappy_tpu_torch import CorruptInputError
     from snappy_tpu_torch.core import varint
     from snappy_tpu_torch.native import runtime as nat
-    from snappy_tpu_torch.ops import cuda_decode, decode_torch, kernels
-    from snappy_tpu_torch.ops.host import pack_rows
+    from snappy_tpu_torch.ops import cuda_decode, cuda_encode, decode_torch, encode_torch, kernels, route
+    from snappy_tpu_torch.ops.encode_torch import ENC_PAD
+    from snappy_tpu_torch.ops.host import blockify, pack_rows
     from snappy_tpu_torch.parallel import framed
     from snappy_tpu_torch.parallel import host as fhost
 
@@ -146,7 +169,7 @@ def main() -> int:
     t1 = time.perf_counter()
     kernels.load()
     t2 = time.perf_counter()
-    print(f"[2 build] native g++ {t1 - t0:.2f} s, CUDA nvcc {t2 - t1:.2f} s "
+    print(f"[2 build] native g++ {t1 - t0:.2f} s, CUDA nvcc (both kernels) {t2 - t1:.2f} s "
           f"(cached libraries load in ~0 s)", flush=True)
 
     # 3. kernel against its plain version on the card, one batch
@@ -291,6 +314,117 @@ def main() -> int:
               f"damaged {label} did not raise")
     print("[6 corrupt] flipped crc and damaged block both raise CorruptInputError", flush=True)
 
+    # 7. encode kernel against its plain version on the card, one batch
+    width = BLOCK + ENC_PAD
+    rng = np.random.default_rng(2)
+    rows = [raw_main[i * BLOCK : (i + 1) * BLOCK] for i in range(128)]
+    rows += [b"\xff" * BLOCK, b"\xff" * 5000, b"\xff\xff\xff\xff\x01" * 400, b"q" * BLOCK, b"ab" * 20000]
+    rows += [r[:BLOCK] for r in rle_raws] + [b"", b"a", b"ab", b"abc", b"xyzw\x00\x00\x00\x00xyzw"]
+    rows += [rng.integers(0, 256, 60000, dtype=np.uint8).tobytes(), bytes(range(256)) * 8]
+    e_blocks = np.zeros((len(rows) + 2, width), np.uint8)
+    e_blens = np.zeros(len(rows) + 2, np.int32)
+    for i, r in enumerate(rows):
+        e_blocks[i, : len(r)] = np.frombuffer(r, np.uint8)
+        e_blens[i] = len(r)
+    e_blens[-2:] = [width - ENC_PAD + 1, -1]  # do not fit the batch: the kernel refuses them
+    e_blocks[-2:, :BLOCK] = e_blocks[0, :BLOCK]
+    blocks_t = torch.from_numpy(e_blocks).to(dev)
+    blens_t = torch.from_numpy(e_blens).to(dev)
+    err7 = 0
+    for mp in (2, 1):
+        k_out, k_olens = cuda_encode.encode_blocks(blocks_t, blens_t, mp)
+        p_out, p_olens = encode_torch.encode_blocks(blocks_t, blens_t, mp)
+        torch.cuda.synchronize()
+        err7 = max(err7, int((k_out.int() - p_out.int()).abs().max()))
+        check(torch.equal(k_olens, p_olens), f"min_profit {mp}: kernel and plain version disagree on olens")
+        check(err7 == 0 and torch.equal(k_out, p_out), f"min_profit {mp}: kernel and plain version disagree on out")
+        lens = k_olens.cpu().numpy()
+        check(lens[-2:].tolist() == [-1, -1] and not bool(k_out[-2:].any()),
+              "the encode kernel did not refuse blens outside the batch")
+        out_np = k_out.cpu().numpy()
+        for i, r in enumerate(rows):
+            stream = bytes(varint.encode32(len(r))) + out_np[i, : lens[i]].tobytes()
+            check(nat.uncompress(stream) == r, f"min_profit {mp}: row {i} does not decode to its block")
+    print(f"[7 encode kernel] {len(rows) + 2} rows (128 corpus blocks + ff rows + RLE + lengths 0-3 + "
+          f"match into the padding + random + 2 rows outside the batch), min_profit 2 and 1: out, olens "
+          f"identical to the plain version; max |kernel - plain| = {err7}; every row decodes under the "
+          f"native decoder; 2 rows refused", flush=True)
+
+    # 8. the write path at full size: the 64 MiB corpus mix through compress_framed
+    cuda_encode.launches = 0
+    cuda_decode.launches = 0
+    t0 = time.perf_counter()
+    frame_w = snappy_tpu_torch.compress_framed(raw_main, device="cuda")
+    t_first_w = time.perf_counter() - t0
+    enc_launches = cuda_encode.launches
+    check(enc_launches > 0, "compress_framed did not launch the CUDA encode kernel")
+    check(cuda_decode.launches == 0, "compress_framed launched the decoder")
+    check(snappy_tpu_torch.uncompress_framed(frame_w, device="cuda") == raw_main,
+          "the written frame does not decode through the port's CUDA decoder")
+    check(nat.uncompress(framed.frame_to_raw(frame_w)) == raw_main,
+          "the written frame does not decode through the native decoder")
+    w_calls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = snappy_tpu_torch.compress_framed(raw_main, device="cuda")
+        w_calls.append(time.perf_counter() - t0)
+        check(again == frame_w, "repeat compress_framed gave other bytes")
+    buf, blens = blockify(np.frombuffer(raw_main, np.uint8), BLOCK)
+    host_idx = route.host_blocks(buf, blens)
+    dev_idx = np.setdiff1d(np.arange(len(blens)), host_idx)
+    d_blocks = torch.from_numpy(buf[dev_idx]).to(dev)
+    d_blens = torch.from_numpy(blens[dev_idx]).to(dev)
+    enc_ms = cuda_ms(lambda: cuda_encode.encode_blocks(d_blocks, d_blens, 2), 10)
+    k_out, k_olens = cuda_encode.encode_blocks(d_blocks, d_blens, 2)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    p_out, p_olens = encode_torch.encode_blocks(d_blocks, d_blens, 2)
+    b.record()
+    b.synchronize()
+    enc_plain_ms = a.elapsed_time(b)
+    err8 = int((k_out.int() - p_out.int()).abs().max())
+    check(err8 == 0 and torch.equal(k_out, p_out) and torch.equal(k_olens, p_olens),
+          "encode kernel and plain version differ at full size")
+    p_out, p_olens = p_out.cpu().numpy(), p_olens.cpu().numpy()
+    streams_w = nat.compress_rows(buf, blens, np.arange(len(blens)))
+    for j, i in enumerate(dev_idx.tolist()):
+        streams_w[i] = p_out[j, : p_olens[j]].tobytes()
+    check(framed.build_frame(streams_w, raws, len(raw_main)) == frame_w,
+          "the written frame is not the plain version's blocks and the routed blocks' native streams")
+    del p_out, k_out
+    print(f"[8 write slice] 64 MiB corpus mix, {len(blens)} blocks: {len(host_idx)} routed to the host, "
+          f"{len(dev_idx)} on the card (all {len(dev_idx)} held against the plain version: identical); "
+          f"frame {len(frame_w)} bytes, decodes through the CUDA and native decoders; encode kernel "
+          f"launches {enc_launches}; first call {t_first_w:.4f} s", flush=True)
+    print(f"[8 write slice] on {card}: encode launch ({len(dev_idx)} blocks) {enc_ms:.4f} ms "
+          f"({len(dev_idx) * BLOCK / enc_ms / 1e6:.3f} GB/s), plain version {enc_plain_ms:.4f} ms; whole "
+          f"compress_framed call min {min(w_calls):.4f} s ({gb / min(w_calls):.3f} GB/s) of "
+          f"{[round(c, 4) for c in w_calls]}", flush=True)
+
+    # 9. density gate and the raw write path
+    worst = []
+    for fname in DENSITY_FILES:
+        data = read(fname)
+        fbuf, fblens = blockify(np.frombuffer(data, np.uint8), BLOCK)
+        _, olens = cuda_encode.encode_blocks(torch.from_numpy(fbuf).to(dev), torch.from_numpy(fblens).to(dev), 2)
+        ours = int(olens.sum())
+        theirs = len(nat.compress(data)) - len(varint.encode32(len(data)))
+        check(ours <= theirs, f"{fname}: kernel {ours} bytes > native {theirs}")
+        worst.append(ours / theirs)
+    before = cuda_encode.launches
+    t0 = time.perf_counter()
+    raw_w = snappy_tpu_torch.compress(raw_main, backend="torch", device="cuda")
+    t_raw_w = time.perf_counter() - t0
+    check(cuda_encode.launches > before, "compress(backend='torch') did not launch the encode kernel")
+    check(nat.uncompress(raw_w) == raw_main, "the raw stream from compress(backend='torch') does not decode")
+    reframed = framed.raw_to_frame(raw_stream, device="cuda")
+    check(snappy_tpu_torch.uncompress_framed(reframed, device="cuda") == raw_main,
+          "raw_to_frame of a native raw stream does not decode")
+    print(f"[9 density and raw] {len(DENSITY_FILES)} corpus files each no larger than native "
+          f"(largest ratio {max(worst):.4f}); 64 MiB compress(backend='torch') {len(raw_w)} bytes in "
+          f"{t_raw_w:.4f} s whole call on {card}, decodes; raw_to_frame of the native stream decodes", flush=True)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "decode_blocks",
@@ -301,6 +435,15 @@ def main() -> int:
         "max_abs_err": max(err3, err4),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "encode_blocks",
+        "route": "cuda",
+        "source": "snappy_tpu_torch/csrc/encode_blocks.cu",
+        "replaces": "snappy_tpu/ops/pallas_encode.py:259",
+        "launches": enc_launches,
+        "max_abs_err": max(err7, err8),
+        "ms": enc_ms,
+        "plain_ms": enc_plain_ms,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -1,13 +1,16 @@
 """snappy_tpu_torch: the Snappy codec of snappy_tpu, ported to PyTorch and CUDA.
 
-The read path runs on an NVIDIA Hopper GPU: every block of a framed or raw
-stream is decoded by a hand-written CUDA kernel (``csrc/decode_blocks.cu``),
-with a plain torch version of the same function for CPU tensors. Encoding
-uses the native C++ codec on the host.
+The read and write paths run on an NVIDIA Hopper GPU: every block of a
+framed or raw stream is decoded by a hand-written CUDA kernel
+(``csrc/decode_blocks.cu``), and every compressible 64 KiB block is encoded
+by another (``csrc/encode_blocks.cu``), while incompressible blocks go to
+the native C++ encoder on the host. Each kernel has a plain torch version
+of the same function for CPU tensors.
 
 Public API:
-  - compress(data) -> bytes                       raw snappy stream (native)
+  - compress(data, backend=, device=) -> bytes    raw snappy stream
   - uncompress(data, backend=, device=) -> bytes  decode a raw stream
+  - compress_framed(data, config=, device=)       framed stream
   - uncompress_framed(frame, device=) -> bytes    decode a framed stream
   - max_compressed_length(n) -> int
   - uncompressed_length(data) -> (n, header_len)
@@ -24,7 +27,7 @@ from .core import (
     SnappyError,
     max_compressed_length,
 )
-from .parallel import uncompress_framed
+from .parallel import compress_framed, uncompress_framed
 
 __version__ = "0.1.0"
 
@@ -35,6 +38,7 @@ __all__ = [
     "InputTooLargeError",
     "SnappyError",
     "compress",
+    "compress_framed",
     "max_compressed_length",
     "uncompress",
     "uncompress_framed",

@@ -1,11 +1,11 @@
 """Top-level raw-format API with backend dispatch.
 
   - "native"  the C++ codec on the host (the default, as in snappy_tpu)
-  - "torch"   block-parallel decode on a torch device: the CUDA kernel on
-              ``device="cuda"``, the plain torch version on ``"cpu"``
-              (the counterpart of snappy_tpu's "xla" backend)
+  - "torch"   block-parallel encode and decode on a torch device: the
+              CUDA kernels on ``device="cuda"``, their plain torch versions
+              on ``"cpu"`` (the counterpart of snappy_tpu's "xla" backend)
 
-The "cpu" oracle backend and a torch encoder are not ported yet.
+The "cpu" oracle backend is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,12 +13,15 @@ from __future__ import annotations
 from .native import runtime as native_runtime
 
 
-def compress(data, backend: str | None = None) -> bytes:
-    """Compress ``data`` into a raw Snappy stream."""
+def compress(data, backend: str | None = None, device="cuda") -> bytes:
+    """Compress ``data`` into a raw Snappy stream. ``device`` applies to
+    the "torch" backend."""
     if backend in (None, "native"):
         return native_runtime.compress(data)
     if backend == "torch":
-        raise NotImplementedError("the torch block encoder is not ported yet; use backend='native'")
+        from .ops import host
+
+        return host.compress(data, device=device)
     raise ValueError(f"unknown backend {backend!r}")
 
 

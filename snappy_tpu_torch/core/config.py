@@ -1,9 +1,9 @@
 """Runtime configuration.
 
 The same fields and defaults as ``snappy_tpu.core.config``, so that a frame
-written under one package's ``FrameConfig`` reads under the other's. The
-encoder fields (``max_match_scan``, ``min_profit``) are carried for that
-parity; this package's read path does not consult them.
+written under one package's ``FrameConfig`` reads under the other's.
+``min_profit`` sets the block encoder's take threshold; ``max_match_scan``
+is carried for parity and not consulted.
 """
 
 from __future__ import annotations

@@ -1,2 +1,2 @@
-"""Block decode: the plain torch version, the CUDA kernel and its build, and
-the raw-stream host driver."""
+"""Block codecs: the plain torch versions, the CUDA kernels and their build,
+routing, and the raw-stream host driver."""

@@ -1,9 +1,16 @@
-"""Host driver of raw-stream decode on one device.
+"""Host driver of raw-stream encode and decode on one device.
 
-The counterpart of ``snappy_tpu/ops/host.py:40-133``. The host parses the
-varint header, the native ``scan_blocks`` cuts the tag stream into segments
-of at most 128 KiB of output at tag boundaries, and the block decoder runs
-all segments in one batched launch. A stream that ``scan_blocks`` declines
+``compress`` is the counterpart of ``snappy_tpu/ops/encode_xla.py::
+compress_host`` with the Pallas block encoder: the stream is cut into
+64 KiB blocks, routed 16 blocks at a time as the reference routes them, the
+device blocks of all chunks are encoded in one launch while the host
+encodes the routed ones, and the block streams are joined under the varint
+header.
+
+``uncompress`` is the counterpart of ``snappy_tpu/ops/host.py:40-133``. The
+host parses the varint header, the native ``scan_blocks`` cuts the tag
+stream into segments of at most 128 KiB of output at tag boundaries, and
+the block decoder runs all segments in one batched launch. A stream that ``scan_blocks`` declines
 goes to the same decoder as one headerless block. On a CUDA device that is
 the kernel, which has no size limit; on the CPU it is the plain version,
 whose memory grows with the stream, so there it is refused above
@@ -16,21 +23,30 @@ import numpy as np
 import torch
 
 from ..core import varint
-from ..core.errors import CorruptInputError
+from ..core.config import DEFAULT_MIN_PROFIT
+from ..core.constants import BLOCK_SIZE
+from ..core.errors import CorruptInputError, InputTooLargeError
 from ..native import runtime as nat
 from ..utils.profiling import trace_annotation
 from . import decode_torch
 from .decode_torch import COMP_PAD
+from .encode_torch import ENC_PAD
 from .select import block_decoder
 
 _I32_MAX = (1 << 31) - 1
+# Blocks routed together by the raw encoder, as the reference's
+# ``encode_xla.MAX_BATCH_BLOCKS``: a block's routing score depends on the
+# batch it is scored in, so the same chunks give the same bytes.
+ROUTE_CHUNK_BLOCKS = 16
 
 
-def _as_np(data) -> np.ndarray:
+def as_u8(data) -> np.ndarray:
+    """``data`` (bytes-like, str, or a uint8 array) as a contiguous uint8
+    array, without a copy where it already is one."""
     if isinstance(data, np.ndarray):
         if data.dtype != np.uint8:
             raise TypeError(f"expected uint8 array, got {data.dtype}")
-        return data
+        return np.ascontiguousarray(data)
     if isinstance(data, str):
         data = data.encode("utf-8")
     return np.frombuffer(memoryview(data), dtype=np.uint8)
@@ -47,6 +63,21 @@ def pack_rows(buf: np.ndarray, starts: np.ndarray, clens: np.ndarray) -> np.ndar
     return rows
 
 
+def blockify(inp: np.ndarray, block_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """The blocks of ``inp`` as the rows of a uint8[n, block_size + ENC_PAD]
+    batch, zero past each block, and their lengths int32[n]; one copy."""
+    n = len(inp)
+    n_blocks = -(-n // block_size)
+    full = n // block_size
+    buf = np.zeros((n_blocks, block_size + ENC_PAD), np.uint8)
+    buf[:full, :block_size] = inp[: full * block_size].reshape(full, block_size)
+    blens = np.full(n_blocks, block_size, np.int32)
+    if full < n_blocks:
+        buf[full, : n - full * block_size] = inp[full * block_size :]
+        blens[full] = n - full * block_size
+    return buf, blens
+
+
 def to_device(a: np.ndarray, device) -> torch.Tensor:
     """``a`` as a tensor on ``device``. A CUDA copy goes through pinned
     memory and does not wait for work already queued on the stream."""
@@ -59,7 +90,7 @@ def to_device(a: np.ndarray, device) -> torch.Tensor:
 def uncompress(data, device="cuda") -> bytes:
     """Decode a raw Snappy stream on ``device``. Raises CorruptInputError
     on a corrupt stream."""
-    comp = _as_np(data)
+    comp = as_u8(data)
     ulen, start = varint.parse32(comp, 0)
     body = comp[start:]
     scan = nat.scan_blocks(body, ulen)  # raises CorruptInputError
@@ -104,3 +135,25 @@ def _uncompress_blocked(body: np.ndarray, starts: np.ndarray, oplens: np.ndarray
         return out.tobytes()
     keep = np.arange(out_size)[None, :] < oplens[:, None]
     return out[keep].tobytes()
+
+
+def compress(data, device="cuda") -> bytes:
+    """Compress into a raw Snappy stream, encoding the compressible blocks
+    with the block encoder on ``device``."""
+    from . import route  # route builds on to_device above
+
+    inp = as_u8(data)
+    n = len(inp)
+    if n > 0xFFFFFFFF:
+        raise InputTooLargeError("input exceeds 2**32-1 bytes")
+    header = varint.encode32(n)
+    if n == 0:
+        return header
+    with trace_annotation("snappy.compress"):
+        buf, blens = blockify(inp, BLOCK_SIZE)
+        k = ROUTE_CHUNK_BLOCKS
+        host_idx = np.concatenate(
+            [c + route.host_blocks(buf[c : c + k], blens[c : c + k]) for c in range(0, len(blens), k)]
+        )
+        ticket = route.dispatch_routed(buf, blens, host_idx, device, DEFAULT_MIN_PROFIT)
+        return header + b"".join(route.assemble_routed(ticket))

@@ -45,6 +45,8 @@ def load():
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.snappy_cuda_decode_blocks.restype = ctypes.c_int
     lib.snappy_cuda_decode_blocks.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr, ptr]
+    lib.snappy_cuda_encode_blocks.restype = ctypes.c_int
+    lib.snappy_cuda_encode_blocks.argtypes = [ptr, ptr, i64, i64, i64, ctypes.c_int, ptr, ptr, ptr]
     lib.snappy_cuda_error_string.restype = ctypes.c_char_p
     lib.snappy_cuda_error_string.argtypes = [ctypes.c_int]
     _lib = lib

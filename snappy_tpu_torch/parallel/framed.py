@@ -32,6 +32,7 @@ import numpy as np
 from ..core import varint
 from ..core.config import DEFAULT_FRAME_CONFIG, FrameConfig
 from ..core.errors import CorruptInputError
+from ..native import runtime as nat
 
 MAGIC = b"SNPTPU01"
 _HEADER = struct.Struct("<8sIIQI")
@@ -152,3 +153,30 @@ def frame_to_raw(frame: bytes) -> bytes:
     for s, e in idx.block_ranges():
         parts.append(frame[s:e])
     return b"".join(parts)
+
+
+def raw_to_frame(raw: bytes, config: FrameConfig = DEFAULT_FRAME_CONFIG, device="cuda") -> bytes:
+    """Reframe a raw stream into a frame.
+
+    Where the native segmenter cuts the stream into segments of exactly
+    ``block_size`` output bytes (the streams of every block-based encoder),
+    the frame reuses the segment bytes as they are, and the stream is
+    decoded on the host only for the crcs. Any other stream is decoded on
+    the host and compressed again with ``compress_framed`` on ``device``.
+    """
+    comp = np.frombuffer(raw, np.uint8)
+    ulen, start = varint.parse32(comp, 0)
+    bs = config.block_size
+    seg = nat.scan_blocks(comp[start:], ulen) if bs == 1 << 16 and ulen else None
+    if seg is not None and len(seg[0]) and (seg[1][:-1] == bs).all() and seg[1][-1] <= bs:
+        bounds = [*seg[0].tolist(), len(comp) - start]
+        body = raw[start:]
+        streams = [body[bounds[i] : bounds[i + 1]] for i in range(len(seg[0]))]
+        raws = None
+        if config.checksum:
+            out = nat.uncompress(raw)
+            raws = [out[i : i + bs] for i in range(0, len(out), bs)]
+        return build_frame(streams, raws, ulen, config)
+    from .host import compress_framed  # host builds on this module
+
+    return compress_framed(nat.uncompress(raw), config, device)

@@ -1,20 +1,26 @@
-"""Host driver of framed decode on one device.
+"""Host driver of framed encode and decode on one device.
 
-The counterpart of ``snappy_tpu/parallel/host.py:106-164``, without a mesh.
-``dispatch_uncompress`` packs the frame's blocks into one batch, copies it
-to the device and launches the block decoder, which runs asynchronously on
-the current stream; ``assemble_uncompress`` waits for it, checks every
-block's ``ok`` flag and crc, and joins the blocks. The split lets a
-pipeline prepare frame k+1 while the device decodes frame k.
+The counterpart of ``snappy_tpu/parallel/host.py``, without a mesh.
+``dispatch_compress`` cuts the stream into blocks, routes the
+incompressible ones to the host encoder and launches the block encoder on
+the rest, asynchronously on the current stream; ``assemble_compress`` waits
+for it and builds the frame. ``dispatch_uncompress`` packs the frame's
+blocks into one batch, copies it to the device and launches the block
+decoder; ``assemble_uncompress`` waits for it, checks every block's ``ok``
+flag and crc, and joins the blocks. The splits let a pipeline prepare
+frame k+1 while the device works on frame k.
 """
 
 from __future__ import annotations
 
-import numpy as np
-import torch
+import zlib
 
+import numpy as np
+
+from ..core.config import DEFAULT_FRAME_CONFIG, FrameConfig
 from ..core.errors import CorruptInputError
-from ..ops.host import pack_rows, to_device
+from ..ops import route
+from ..ops.host import as_u8, blockify, pack_rows, to_device
 from ..ops.select import block_decoder
 from ..utils.profiling import trace_annotation
 from . import framed
@@ -22,6 +28,36 @@ from . import framed
 # A valid tag stream spends at most 6 bytes on one output byte (a literal
 # tag with 4 length bytes and a 1-byte body), plus one ignored trailing byte.
 MAX_TAG_BYTES_PER_BYTE = 6
+
+
+def dispatch_compress(data, config: FrameConfig = DEFAULT_FRAME_CONFIG, device="cuda"):
+    """Launch the encode of every block of ``data`` on ``device``; encode
+    the routed blocks and take every block's crc on the host meanwhile.
+    Returns a ticket for ``assemble_compress``."""
+    bs = config.block_size
+    if not 1 <= bs <= 1 << 16:
+        raise ValueError("block_size must be in [1, 65536]")
+    inp = as_u8(data)
+    if len(inp) == 0:
+        return (inp, config, None, [])
+    with trace_annotation("framed.dispatch_compress"):
+        buf, blens = blockify(inp, bs)
+        routed = route.dispatch_routed(buf, blens, route.host_blocks(buf, blens), device, config.min_profit)
+        crcs = [zlib.crc32(inp[i : i + bs]) for i in range(0, len(inp), bs)] if config.checksum else None
+    return (inp, config, routed, crcs)
+
+
+def assemble_compress(ticket) -> bytes:
+    """Wait for the blocks of ``dispatch_compress`` and build the frame."""
+    inp, config, routed, crcs = ticket
+    with trace_annotation("framed.assemble_compress"):
+        streams = route.assemble_routed(routed) if routed is not None else []
+        return framed.build_frame_header([len(s) for s in streams], crcs, len(inp), config) + b"".join(streams)
+
+
+def compress_framed(data, config: FrameConfig = DEFAULT_FRAME_CONFIG, device="cuda") -> bytes:
+    """Compress into the framed container, block-parallel on ``device``."""
+    return assemble_compress(dispatch_compress(data, config, device))
 
 
 def frame_batch(frame: bytes, idx: framed.FrameIndex):

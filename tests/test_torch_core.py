@@ -90,6 +90,7 @@ def test_port_imports_neither_jax_nor_snappy_tpu():
         "import sys, snappy_tpu_torch\n"
         "import snappy_tpu_torch.ops.host, snappy_tpu_torch.ops.cuda_decode\n"
         "import snappy_tpu_torch.ops.kernels, snappy_tpu_torch.parallel.host\n"
+        "import snappy_tpu_torch.ops.cuda_encode, snappy_tpu_torch.ops.encode_torch, snappy_tpu_torch.ops.route\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'snappy_tpu'))\n"
         "print(','.join(bad))\n"
     )

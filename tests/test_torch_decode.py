@@ -230,8 +230,10 @@ def test_wrapper_rejects_bad_arguments(bad):
 
 
 def test_block_decoder_by_device():
+    """One dispatch point: select checks the device, the wrapper picks the
+    kernel or the plain version by the tensor's device."""
     assert select.block_decoder("cuda") is cuda_decode.decode_blocks
     assert select.block_decoder(torch.device("cuda", 0)) is cuda_decode.decode_blocks
-    assert select.block_decoder("cpu") is decode_torch.decode_blocks
+    assert select.block_decoder("cpu") is cuda_decode.decode_blocks
     with pytest.raises(ValueError):
         select.block_decoder("meta")
