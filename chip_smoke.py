@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive snappy_tpu_torch's read and write paths once on one CUDA GPU (Hopper, sm_90).
+"""Drive snappy_tpu_torch's read and write paths and the decode A/B once on one CUDA GPU (Hopper, sm_90).
 
     python3 chip_smoke.py
 
@@ -8,7 +8,8 @@ Run from the root of the repository, with no arguments; it uses one card
 non-zero:
 
   1. device   name, capability (must be 9.0), nvidia-smi name and power limit
-  2. build    the native C++ codec (g++) and the CUDA kernels (nvcc)
+  2. build    the native C++ codec (g++) and the three CUDA kernels (one
+              nvcc per source, all at once)
   3. kernel   the CUDA block decoder against its plain torch version on one
               batch on the card: 128 corpus blocks of 64 KiB, the corrupt
               battery, RLE blocks, wrong claimed lengths, a trailing byte,
@@ -36,14 +37,34 @@ non-zero:
               larger than the native greedy encoder; compress(backend=
               "torch", device="cuda") of the 64 MiB stream and raw_to_frame of
               a native stream decode back
+ 10. r4 kernel  K3, the port of the pinned round-4 decoder, against its plain
+              version on phase 3's battery (a trailing byte is corrupt to
+              K3), on a 128 KiB batch of rows at the edges of its envelope
+              (offset 65,536 and a 65,537-byte literal refused, 65,535 and
+              65,536 taken), and on rows whose lengths do not fit the batch
+ 11. decode A/B  K1 against K3 on the same streams, as bench.py's decode_own
+              and decode_foreign stages run them: the 1024 block streams of
+              phase 8's frame (own) and the 1024 scan_blocks segments of
+              phase 5's native raw stream (foreign). Gates first: both
+              kernels bit-exact with every row ok, K3 identical to its plain
+              version, and where libsnappy is installed every 8th own stream
+              decodes under it and the own streams are no larger than its
+              output. Then interleaved rounds (3 own, 2 foreign) with
+              utils/metrics.time_device_fn; each kernel's GB/s, the ratio
+              vs_r4_same_run (K1 over K3) and the faster kernel. K3's launches
+              are counted over this phase
 
 Before the last line it prints the card's `nvidia-smi` name and power limit
 and one JSON line {"kernels": [...]} with each kernel's launches on its main
-path, its largest difference from the plain version, and its time beside
-the plain version's at the main path's shape. Times are informational. The
-last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
-with code 2 and prints no result. It imports no JAX and nothing of
-snappy_tpu.
+path, its largest difference from the plain version, its time beside the
+plain version's at the main path's shape, and its bound: the larger of the
+bytes it must move (inputs read once, outputs written once, as this run's
+data needs them) over the H100's 3.35 TB/s and its operations (one integer
+operation per byte read or written) over 67 TOP/s. No PyTorch call computes
+a Snappy block decode or encode, so library_ms is null. Times are
+informational. The last line is {"ok": true, "device": {...}}. Without a
+CUDA device it exits with code 2 and prints no result. It imports no JAX and
+nothing of snappy_tpu.
 """
 
 from __future__ import annotations
@@ -60,6 +81,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 BLOCK = 1 << 16
 ANY = object()  # a case whose result only has to agree between kernel and plain version
 MAIN_BYTES = 64 << 20
+# The H100 SXM's device memory rate, and its float32 rate outside the tensor
+# cores, taken for the codec's integer operations (NVIDIA's data sheet).
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
 # The same mix, in the same order, as bench.py's corpus stream.
 CORPUS = [
     "alice29.txt", "html", "urls.10K", "fireworks.jpeg", "paper-100k.pdf",
@@ -105,22 +130,17 @@ def block_streams(nat, raw: bytes) -> tuple[list[bytes], np.ndarray]:
     return nat.compress_rows(buf, blens, np.arange(n)), blens
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Median device milliseconds of ``fn()`` over ``iters`` runs (CUDA
-    events around each run, after one warm-up run)."""
-    import torch
+def bound(in_bytes: int, out_bytes: int) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    read ``in_bytes`` and write ``out_bytes``, doing one integer operation
+    per byte."""
+    by_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    by_ops = (in_bytes + out_bytes) / OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
-    fn()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+
+def max_err(a, b) -> int:
+    return int((a.int() - b.int()).abs().max()) if a.numel() else 0
 
 
 def raises(exc, fn) -> bool:
@@ -141,12 +161,19 @@ def main() -> int:
     import snappy_tpu_torch
     from snappy_tpu_torch import CorruptInputError
     from snappy_tpu_torch.core import varint
+    from snappy_tpu_torch.native import libsnappy
     from snappy_tpu_torch.native import runtime as nat
-    from snappy_tpu_torch.ops import cuda_decode, cuda_encode, decode_torch, encode_torch, kernels, route
+    from snappy_tpu_torch.ops import (
+        cuda_decode, cuda_decode_r4, cuda_encode, decode_torch, encode_torch, kernels, route,
+    )
     from snappy_tpu_torch.ops.encode_torch import ENC_PAD
     from snappy_tpu_torch.ops.host import blockify, pack_rows
     from snappy_tpu_torch.parallel import framed
     from snappy_tpu_torch.parallel import host as fhost
+    from snappy_tpu_torch.utils.metrics import Metrics, time_device_fn
+
+    def device_ms(fn, args, iters: int, warmup: int = 1) -> float:
+        return time_device_fn(fn, args, iters=iters, warmup=warmup) * 1e3
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -169,7 +196,7 @@ def main() -> int:
     t1 = time.perf_counter()
     kernels.load()
     t2 = time.perf_counter()
-    print(f"[2 build] native g++ {t1 - t0:.2f} s, CUDA nvcc (both kernels) {t2 - t1:.2f} s "
+    print(f"[2 build] native g++ {t1 - t0:.2f} s, CUDA nvcc (three kernels at once) {t2 - t1:.2f} s "
           f"(cached libraries load in ~0 s)", flush=True)
 
     # 3. kernel against its plain version on the card, one batch
@@ -191,6 +218,7 @@ def main() -> int:
     )]
     cases += [(s, len(r), r) for s, r in zip(rle, rle_raws)]
     cases += [(wrong[0], 999, None), (wrong[0], 1001, None)]
+    trailing = len(cases)  # K1 ignores the byte after the last tag; K3 reads it as a tag
     cases += [(good[0] + b"\x00", 480, b"hello world " * 40), (good[0], 480, b"hello world " * 40)]
     cases += [(trunc, 124, None)]
     # Corpus blocks with one byte changed or the tail cut, from a fixed
@@ -215,7 +243,8 @@ def main() -> int:
     k_out, k_ok, k_total = cuda_decode.decode_blocks(comp, clens, ulens, BLOCK)
     p_out, p_ok, p_total = decode_torch.decode_blocks(comp, clens, ulens, BLOCK)
     torch.cuda.synchronize()
-    err3 = int((k_out.int() - p_out.int()).abs().max())
+    battery = (comp, clens, ulens)
+    err3 = max_err(k_out, p_out)
     check(torch.equal(k_ok, p_ok), "kernel and plain version disagree on ok")
     check(err3 == 0 and torch.equal(k_out, p_out), "kernel and plain version disagree on out")
     check(torch.equal(k_total[k_ok], p_total[p_ok]), "kernel and plain version disagree on total")
@@ -260,11 +289,12 @@ def main() -> int:
     comp = torch.from_numpy(b_comp).to(dev)
     clens = torch.from_numpy(b_clens).to(dev)
     ulens = torch.from_numpy(b_ulens).to(dev)
-    kernel_ms = cuda_ms(lambda: cuda_decode.decode_blocks(comp, clens, ulens, out_size), 20)
-    plain_ms = cuda_ms(lambda: decode_torch.decode_blocks(comp, clens, ulens, out_size), 3)
+    kernel_ms = device_ms(cuda_decode.decode_blocks, (comp, clens, ulens, out_size), 20)
+    plain_ms = device_ms(decode_torch.decode_blocks, (comp, clens, ulens, out_size), 3)
+    k1_bound = bound(int(b_clens.sum()) + 8 * len(b_clens), int(b_ulens.sum()) + 5 * len(b_ulens))
     k_out, k_ok, _ = cuda_decode.decode_blocks(comp, clens, ulens, out_size)
     p_out, p_ok, _ = decode_torch.decode_blocks(comp, clens, ulens, out_size)
-    err4 = int((k_out.int() - p_out.int()).abs().max())
+    err4 = max_err(k_out, p_out)
     check(err4 == 0 and torch.equal(k_ok, p_ok) and bool(k_ok.all()), "kernel and plain differ at full size")
     del p_out, p_ok
     gb = len(raw_main) / 1e9
@@ -335,7 +365,7 @@ def main() -> int:
         k_out, k_olens = cuda_encode.encode_blocks(blocks_t, blens_t, mp)
         p_out, p_olens = encode_torch.encode_blocks(blocks_t, blens_t, mp)
         torch.cuda.synchronize()
-        err7 = max(err7, int((k_out.int() - p_out.int()).abs().max()))
+        err7 = max(err7, max_err(k_out, p_out))
         check(torch.equal(k_olens, p_olens), f"min_profit {mp}: kernel and plain version disagree on olens")
         check(err7 == 0 and torch.equal(k_out, p_out), f"min_profit {mp}: kernel and plain version disagree on out")
         lens = k_olens.cpu().numpy()
@@ -374,16 +404,16 @@ def main() -> int:
     dev_idx = np.setdiff1d(np.arange(len(blens)), host_idx)
     d_blocks = torch.from_numpy(buf[dev_idx]).to(dev)
     d_blens = torch.from_numpy(blens[dev_idx]).to(dev)
-    enc_ms = cuda_ms(lambda: cuda_encode.encode_blocks(d_blocks, d_blens, 2), 10)
+    enc_ms = device_ms(cuda_encode.encode_blocks, (d_blocks, d_blens, 2), 10)
     k_out, k_olens = cuda_encode.encode_blocks(d_blocks, d_blens, 2)
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    p_out, p_olens = encode_torch.encode_blocks(d_blocks, d_blens, 2)
-    b.record()
-    b.synchronize()
-    enc_plain_ms = a.elapsed_time(b)
-    err8 = int((k_out.int() - p_out.int()).abs().max())
+    k2_bound = bound(int(blens[dev_idx].sum()) + 4 * len(dev_idx), int(k_olens.sum()) + 4 * len(dev_idx))
+    plain_runs = []
+    # One run of the plain encoder (its walk is a host loop of ~13 s), kept
+    # for the comparison below.
+    enc_plain_ms = device_ms(lambda *a: plain_runs.append(encode_torch.encode_blocks(*a)),
+                             (d_blocks, d_blens, 2), 1, warmup=0)
+    p_out, p_olens = plain_runs.pop()
+    err8 = max_err(k_out, p_out)
     check(err8 == 0 and torch.equal(k_out, p_out) and torch.equal(k_olens, p_olens),
           "encode kernel and plain version differ at full size")
     p_out, p_olens = p_out.cpu().numpy(), p_olens.cpu().numpy()
@@ -425,6 +455,133 @@ def main() -> int:
           f"(largest ratio {max(worst):.4f}); 64 MiB compress(backend='torch') {len(raw_w)} bytes in "
           f"{t_raw_w:.4f} s whole call on {card}, decodes; raw_to_frame of the native stream decodes", flush=True)
 
+    # 10. K3 against its plain version on the card
+    k_out, k_ok, k_total = cuda_decode_r4.decode_blocks(*battery, BLOCK)
+    p_out, p_ok, p_total = decode_torch.decode_blocks_r4(*battery, BLOCK)
+    torch.cuda.synchronize()
+    err10 = max_err(k_out, p_out)
+    check(torch.equal(k_ok, p_ok), "K3 and its plain version disagree on ok")
+    check(err10 == 0 and torch.equal(k_out, p_out), "K3 and its plain version disagree on out")
+    check(torch.equal(k_total[k_ok], p_total[p_ok]), "K3 and its plain version disagree on total")
+    k_ok_np, k_out_np = k_ok.cpu().numpy(), k_out.cpu().numpy()
+    for i, (_, ulen, expect) in enumerate(cases):
+        if expect is ANY:
+            continue
+        want = expect is not None and i != trailing
+        check(bool(k_ok_np[i]) == want, f"K3 case {i}: ok={bool(k_ok_np[i])}")
+        if want:
+            check(k_out_np[i, :ulen].tobytes() == expect, f"K3 case {i}: wrong bytes")
+    # K3's envelope at its edges, in a batch of 128 KiB rows.
+    big = np.random.default_rng(3).integers(0, 256, BLOCK + 1, dtype=np.uint8).tobytes()
+    head = bytes([62 << 2]) + (BLOCK - 1).to_bytes(3, "little") + big[:BLOCK] + bytes([25 << 2]) + bytes(range(26))
+    edge = [  # (body, ulen, K3 takes it)
+        (head + bytes([0x03 | (63 << 2)]) + (65536).to_bytes(4, "little"), BLOCK + 26 + 64, False),
+        (head + bytes([0x02 | (63 << 2), 0xFF, 0xFF]), BLOCK + 26 + 64, True),
+        (head + bytes([0x03 | (63 << 2)]) + (65535).to_bytes(4, "little"), BLOCK + 26 + 64, True),
+        (bytes([62 << 2]) + BLOCK.to_bytes(3, "little") + big, BLOCK + 1, False),
+        (bytes([62 << 2]) + (BLOCK - 1).to_bytes(3, "little") + big[:BLOCK], BLOCK, True),
+    ]
+    wide = 2 * BLOCK
+    e_comp_np = pack_rows(np.frombuffer(b"".join(e[0] for e in edge), np.uint8),
+                          np.cumsum([0] + [len(e[0]) for e in edge[:-1]]), np.array([len(e[0]) for e in edge]))
+    e_args = (torch.from_numpy(e_comp_np).to(dev),
+              torch.tensor([len(e[0]) for e in edge], dtype=torch.int32, device=dev),
+              torch.tensor([e[1] for e in edge], dtype=torch.int32, device=dev), wide)
+    k_out, k_ok, k_total = cuda_decode_r4.decode_blocks(*e_args)
+    p_out, p_ok, p_total = decode_torch.decode_blocks_r4(*e_args)
+    _, k1_ok, _ = cuda_decode.decode_blocks(*e_args)
+    err10 = max(err10, max_err(k_out, p_out))
+    check(err10 == 0 and torch.equal(k_ok, p_ok) and torch.equal(k_total[k_ok], p_total[p_ok]),
+          "K3 and its plain version disagree on the envelope rows")
+    check(k_ok.tolist() == [e[2] for e in edge] and bool(k1_ok.all()),
+          f"envelope rows: K3 ok {k_ok.tolist()}, K1 ok {k1_ok.tolist()}")
+    for i, (body, ulen, takes) in enumerate(edge):
+        if takes:
+            check(k_out[i, :ulen].cpu().numpy().tobytes() == nat.uncompress(bytes(varint.encode32(ulen)) + body),
+                  f"envelope row {i}: wrong bytes")
+    # Lengths that do not fit the batch: the kernel's own guard refuses them.
+    g_clens, g_ulens = e_args[1].clone(), e_args[2].clone()
+    g_clens[0], g_clens[1] = e_comp_np.shape[1] - 3, -1
+    g_ulens[3], g_ulens[4] = wide + 1, -5
+    g_out, g_ok, _ = cuda_decode_r4.decode_blocks(e_args[0], g_clens, g_ulens, wide)
+    check(g_ok.tolist() == [False, False, True, False, False] and not bool(g_out[[0, 1, 3, 4]].any())
+          and torch.equal(g_out[2], k_out[2]), "K3 did not refuse lengths outside the batch")
+    print(f"[10 r4 kernel] {len(cases)} battery rows + {len(edge)} envelope rows at 128 KiB: out, ok identical "
+          f"to the plain version, total identical where ok; max |kernel - plain| = {err10}; the trailing byte, "
+          f"offset 65,536 and a 65,537-byte literal refused (K1 takes all three); 4 rows with lengths outside "
+          f"the batch refused", flush=True)
+
+    # 11. the decode A/B: K1 against K3 on the same streams
+    own_idx = framed.parse_index(frame_w)
+    own = fhost.frame_batch(frame_w, own_idx)
+    own_streams = [frame_w[s:e] for s, e in own_idx.block_ranges()]
+    gate = "libsnappy not installed: its gate did not run"
+    if libsnappy.available():
+        hdr = bytes(varint.encode32(BLOCK))
+        for i in range(0, len(own_streams), 8):
+            check(libsnappy.uncompress(hdr + own_streams[i]) == raws[i], f"own stream {i} does not decode under libsnappy")
+        ls_total = sum(len(libsnappy.compress(r)) - len(hdr) for r in raws)
+        own_total = sum(len(st) for st in own_streams)
+        check(own_total <= ls_total, f"own streams {own_total} bytes > libsnappy {ls_total}")
+        gate = (f"libsnappy gate ran: every 8th own stream decodes under it; own {own_total} bytes <= "
+                f"libsnappy {ls_total}")
+    ulen_f, hdr_f = varint.parse32(np.frombuffer(raw_stream, np.uint8), 0)
+    body = np.frombuffer(raw_stream, np.uint8)[hdr_f:]
+    starts, oplens = nat.scan_blocks(body, ulen_f)
+    check(len(starts) == len(raws) and bool((oplens == BLOCK).all()), "the native stream's segments are not its blocks")
+    f_clens = np.diff(np.append(starts, len(body))).astype(np.int32)
+    foreign = (pack_rows(body, starts, f_clens), f_clens, oplens.astype(np.int32), BLOCK)
+    ab = {"K1": cuda_decode.decode_blocks, "K3": cuda_decode_r4.decode_blocks}
+    # bench.py's stage records for the A/B: K1 is its current kernel, K3 its
+    # pinned control.
+    ab_metrics = Metrics(run={"device": name, "card": card, "blocks": len(raws)})
+    cuda_decode_r4.launches = 0
+    ab_rows = {}
+    for label, batch, rounds in (("own", own, 3), ("foreign", foreign, 2)):
+        args = (*(torch.from_numpy(a).to(dev) for a in batch[:3]), batch[3])
+        outs = {}
+        for kname, fn in ab.items():
+            o, k, _ = fn(*args)
+            check(bool(k.all()) and o.cpu().numpy().tobytes() == raw_main, f"{label}: {kname} is not bit-exact")
+            outs[kname] = o
+        rounds_ms = {kname: [] for kname in ab}
+        for _ in range(rounds):
+            for kname, fn in ab.items():
+                rounds_ms[kname].append(device_ms(fn, args, 3))
+        best = {kname: min(ts) for kname, ts in rounds_ms.items()}
+        gbps = {kname: len(raw_main) / t / 1e6 for kname, t in best.items()}
+        ab_rows[label] = (args, outs["K3"], best, batch[1])
+        pick = max(gbps, key=gbps.get)
+        if label == "own":
+            ab_metrics.add(stage="decode_own", gbps_per_chip=gbps["K1"], seconds_per_batch=best["K1"] / 1e3,
+                           rounds_ms=rounds_ms, kernel="cuda K1")
+            ab_metrics.add(stage="decode_own_r4control", gbps_per_chip=gbps["K3"],
+                           seconds_per_batch=best["K3"] / 1e3, vs_r4_same_run=gbps["K1"] / gbps["K3"],
+                           kernel="cuda K3")
+            ab_metrics.add(stage="decode_own_autotuned", gbps_per_chip=gbps[pick], picked=pick)
+        else:
+            ab_metrics.add(stage="decode_foreign", gbps_per_chip=gbps[pick], picked=pick, per_kernel_gbps=gbps,
+                           rounds_ms=rounds_ms, vs_r4_same_run=gbps["K1"] / gbps["K3"])
+        print(f"[11 decode A/B] {label}, {len(batch[1])} streams, {int(batch[1].sum())} bytes, on {card}: "
+              f"K1 {gbps['K1']:.3f} GB/s, K3 {gbps['K3']:.3f} GB/s (best of {rounds} rounds, ms "
+              f"{ {k: [round(t, 4) for t in ts] for k, ts in rounds_ms.items()} }); "
+              f"vs_r4_same_run {gbps['K1'] / gbps['K3']:.3f}; pick {pick}", flush=True)
+    r4_launches = cuda_decode_r4.launches
+    check(r4_launches > 0, "the decode A/B did not launch K3")
+    err11 = 0
+    for label, (args, k3_out, _, _) in ab_rows.items():
+        p_out, p_ok, _ = decode_torch.decode_blocks_r4(*args)
+        err11 = max(err11, max_err(k3_out, p_out))
+        check(err11 == 0 and bool(p_ok.all()), f"{label}: K3 and its plain version differ")
+    own_args, _, own_best, own_clens = ab_rows["own"]
+    r4_ms = own_best["K3"]
+    r4_plain_ms = device_ms(decode_torch.decode_blocks_r4, own_args, 3)
+    k3_bound = bound(int(own_clens.sum()) + 8 * len(own_clens), len(raw_main) + 5 * len(own_clens))
+    print(f"[11 decode A/B] gates before timing: both kernels bit-exact with every row ok on own and foreign "
+          f"streams, K3 identical to its plain version (max |kernel - plain| = {err11}); {gate}; "
+          f"K3 launches {r4_launches}; K3 plain version {r4_plain_ms:.4f} ms on the own streams", flush=True)
+    print(json.dumps({"decode_ab": ab_metrics.results}), flush=True)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "decode_blocks",
@@ -435,6 +592,9 @@ def main() -> int:
         "max_abs_err": max(err3, err4),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1],
+        "library_ms": None,
     }, {
         "name": "encode_blocks",
         "route": "cuda",
@@ -444,6 +604,21 @@ def main() -> int:
         "max_abs_err": max(err7, err8),
         "ms": enc_ms,
         "plain_ms": enc_plain_ms,
+        "bound_ms": k2_bound[0],
+        "bound_by": k2_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "decode_blocks_r4",
+        "route": "cuda",
+        "source": "snappy_tpu_torch/csrc/decode_blocks_r4.cu",
+        "replaces": "snappy_tpu/ops/pallas_decode_r4.py:270",
+        "launches": r4_launches,
+        "max_abs_err": max(err10, err11),
+        "ms": r4_ms,
+        "plain_ms": r4_plain_ms,
+        "bound_ms": k3_bound[0],
+        "bound_by": k3_bound[1],
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

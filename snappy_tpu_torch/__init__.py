@@ -4,11 +4,14 @@ The read and write paths run on an NVIDIA Hopper GPU: every block of a
 framed or raw stream is decoded by a hand-written CUDA kernel
 (``csrc/decode_blocks.cu``), and every compressible 64 KiB block is encoded
 by another (``csrc/encode_blocks.cu``), while incompressible blocks go to
-the native C++ encoder on the host. Each kernel has a plain torch version
-of the same function for CPU tensors.
+the native C++ encoder on the host. A third kernel, the pinned round-4
+decoder (``csrc/decode_blocks_r4.cu``), is the other side of the decode
+A/B in ``chip_smoke.py`` and no entry point selects it. Each kernel has a
+plain torch version of the same function for CPU tensors.
 
 Public API:
-  - compress(data, backend=, device=) -> bytes    raw snappy stream
+  - compress(data, backend=, device=) -> bytes    raw snappy stream (backends
+                                                  "native", "torch", "cpu")
   - uncompress(data, backend=, device=) -> bytes  decode a raw stream
   - compress_framed(data, config=, device=)       framed stream
   - uncompress_framed(frame, device=) -> bytes    decode a framed stream

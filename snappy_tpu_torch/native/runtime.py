@@ -3,7 +3,7 @@
 The host side of the port: the raw-format encoder, the batched headerless
 block encoder, the reference decoder and ``scan_blocks``, the segmenter
 that cuts a raw stream into block-decodable pieces. A failed build or load
-raises; nothing here probes and falls back.
+raises; ``available()`` is the one probe, for the API's default backend.
 """
 
 from __future__ import annotations
@@ -60,6 +60,15 @@ def _load():
     ]
     _lib = lib
     return lib
+
+
+def available() -> bool:
+    """Whether the native codec builds (or is built) and loads here."""
+    try:
+        _load()
+    except (RuntimeError, OSError, SnappyError):
+        return False
+    return True
 
 
 def _as_buffer(data) -> bytes:

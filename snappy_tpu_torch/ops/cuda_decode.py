@@ -25,7 +25,7 @@ from .decode_torch import COMP_PAD
 launches = 0
 
 
-def _check_args(comp, clens, ulens, out_size: int) -> None:
+def check_args(comp, clens, ulens, out_size: int) -> None:
     if comp.dtype != torch.uint8 or comp.dim() != 2:
         raise TypeError(f"comp must be uint8[B, C], got {comp.dtype}{list(comp.shape)}")
     b, c = comp.shape
@@ -50,27 +50,35 @@ def _check_args(comp, clens, ulens, out_size: int) -> None:
         raise ValueError(f"need 0 <= ulens <= out_size={out_size} and 0 <= clens <= C-{COMP_PAD}")
 
 
-def decode_blocks(comp: torch.Tensor, clens: torch.Tensor, ulens: torch.Tensor, out_size: int):
-    """Decode B headerless tag streams; see the module docstring."""
-    global launches
-    _check_args(comp, clens, ulens, out_size)
-    if comp.device.type == "cpu":
-        return decode_torch.decode_blocks(comp, clens, ulens, out_size)
-    if comp.device.type != "cuda":
-        raise ValueError(f"no block decoder for device {comp.device}")
+def launch(entry: str, comp: torch.Tensor, clens: torch.Tensor, ulens: torch.Tensor, out_size: int):
+    """Allocate (out, ok, total) on comp's CUDA device and launch the block
+    decoder ``entry`` of the kernel library on them (checked arguments; no
+    launch for zero rows)."""
     b, c = comp.shape
     out = torch.empty((b, out_size), dtype=torch.uint8, device=comp.device)
     ok = torch.empty(b, dtype=torch.bool, device=comp.device)
     total = torch.empty(b, dtype=torch.int32, device=comp.device)
     if b == 0:
         return out, ok, total
-    lib = kernels.load()
     with torch.cuda.device(comp.device):
-        rc = lib.snappy_cuda_decode_blocks(
+        rc = getattr(kernels.load(), entry)(
             comp.data_ptr(), clens.data_ptr(), ulens.data_ptr(), b, c, out_size,
             out.data_ptr(), ok.data_ptr(), total.data_ptr(),
             torch.cuda.current_stream(comp.device).cuda_stream,
         )
-    kernels.check(rc, "decode_blocks launch")
-    launches += 1
+    kernels.check(rc, f"{entry} launch")
     return out, ok, total
+
+
+def decode_blocks(comp: torch.Tensor, clens: torch.Tensor, ulens: torch.Tensor, out_size: int):
+    """Decode B headerless tag streams; see the module docstring."""
+    global launches
+    check_args(comp, clens, ulens, out_size)
+    if comp.device.type == "cpu":
+        return decode_torch.decode_blocks(comp, clens, ulens, out_size)
+    if comp.device.type != "cuda":
+        raise ValueError(f"no block decoder for device {comp.device}")
+    res = launch("snappy_cuda_decode_blocks", comp, clens, ulens, out_size)
+    if comp.shape[0]:
+        launches += 1
+    return res

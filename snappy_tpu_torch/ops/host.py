@@ -13,8 +13,9 @@ stream into segments of at most 128 KiB of output at tag boundaries, and
 the block decoder runs all segments in one batched launch. A stream that ``scan_blocks`` declines
 goes to the same decoder as one headerless block. On a CUDA device that is
 the kernel, which has no size limit; on the CPU it is the plain version,
-whose memory grows with the stream, so there it is refused above
-``decode_torch.RAW_WHOLE_LIMIT`` compressed bytes.
+whose memory grows with the stream, so above ``decode_torch.RAW_WHOLE_LIMIT``
+compressed bytes such a stream goes to ``decode_torch.decode_raw_windowed``
+instead (as ``snappy_tpu/ops/host.py:55-60`` does). Both give the same bytes.
 """
 
 from __future__ import annotations
@@ -99,13 +100,11 @@ def uncompress(data, device="cuda") -> bytes:
         # the body: no tag yields more than 64 bytes from 3 (COPY_2).
         if 3 * ulen > 64 * len(body):
             raise CorruptInputError("header claims more output than the stream can hold")
+        if torch.device(device).type == "cpu" and len(body) > decode_torch.RAW_WHOLE_LIMIT:
+            with trace_annotation("snappy.uncompress_windowed"):
+                return decode_torch.decode_raw_windowed(body, ulen, 0)
         if ulen > _I32_MAX:
             raise NotImplementedError("unsegmentable raw stream over 2 GiB")
-        if torch.device(device).type == "cpu" and len(body) > decode_torch.RAW_WHOLE_LIMIT:
-            raise NotImplementedError(
-                "unsegmentable raw stream above RAW_WHOLE_LIMIT: the windowed "
-                "plain decoder is not ported; decode it on a CUDA device"
-            )
         starts, oplens = np.zeros(1, np.int64), np.array([ulen], np.int64)
     else:
         starts, oplens = scan

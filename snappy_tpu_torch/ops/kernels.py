@@ -1,15 +1,18 @@
 """Build the CUDA kernels of ``csrc/`` with nvcc and load them with ctypes.
 
 Each ``.cu`` file exposes a plain C entry point that takes its pointers and
-the stream as ``void*`` and returns the launch's ``cudaError_t``. The
-library is built at first use into the package's build directory, keyed by
-the sources and flags, so an edited kernel rebuilds and nothing else does.
+the stream as ``void*`` and returns the launch's ``cudaError_t``. Each file
+is built into a library of its own, all of them by concurrent nvcc
+processes, at first use into the package's build directory, keyed by the
+source and flags, so an edited kernel rebuilds and nothing else does.
 Nothing is built or imported when this module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import types
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from ..native.build import build_shared
@@ -19,6 +22,22 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
+
+_PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_DECODE_ARGS = [_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR, _PTR, _PTR, _PTR]
+# source stem -> {entry point: (restype, argtypes)}
+ENTRIES = {
+    "decode_blocks": {
+        "snappy_cuda_decode_blocks": (_INT, _DECODE_ARGS),
+        "snappy_cuda_error_string": (ctypes.c_char_p, [_INT]),
+    },
+    "encode_blocks": {
+        "snappy_cuda_encode_blocks": (_INT, [_PTR, _PTR, _I64, _I64, _I64, _INT, _PTR, _PTR, _PTR]),
+    },
+    "decode_blocks_r4": {
+        "snappy_cuda_decode_blocks_r4": (_INT, _DECODE_ARGS),
+    },
+}
 
 _lib = None
 
@@ -36,19 +55,24 @@ def nvcc_path() -> Path:
 
 
 def load():
-    """The kernel library, building it if needed. Raises if the build fails."""
+    """Every kernel's entry points as attributes of one namespace, building
+    the libraries if needed (all sources at once). Raises if a build fails."""
     global _lib
     if _lib is not None:
         return _lib
-    sources = sorted(CSRC.glob("*.cu"))
-    lib = ctypes.CDLL(str(build_shared([str(nvcc_path()), *NVCC_FLAGS], sources, "snappy_cuda")))
-    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.snappy_cuda_decode_blocks.restype = ctypes.c_int
-    lib.snappy_cuda_decode_blocks.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr, ptr]
-    lib.snappy_cuda_encode_blocks.restype = ctypes.c_int
-    lib.snappy_cuda_encode_blocks.argtypes = [ptr, ptr, i64, i64, i64, ctypes.c_int, ptr, ptr, ptr]
-    lib.snappy_cuda_error_string.restype = ctypes.c_char_p
-    lib.snappy_cuda_error_string.argtypes = [ctypes.c_int]
+    compiler = [str(nvcc_path()), *NVCC_FLAGS]
+    with ThreadPoolExecutor(len(ENTRIES)) as pool:
+        paths = dict(zip(ENTRIES, pool.map(
+            lambda stem: build_shared(compiler, [CSRC / f"{stem}.cu"], f"snappy_cuda_{stem}"), ENTRIES
+        )))
+    lib = types.SimpleNamespace(libraries={})
+    for stem, entries in ENTRIES.items():
+        cdll = ctypes.CDLL(str(paths[stem]))
+        lib.libraries[stem] = cdll
+        for name, (restype, argtypes) in entries.items():
+            fn = getattr(cdll, name)
+            fn.restype, fn.argtypes = restype, argtypes
+            setattr(lib, name, fn)
     _lib = lib
     return lib
 

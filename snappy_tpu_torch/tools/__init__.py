@@ -1,0 +1,1 @@
+"""Measurement scripts for the card, run as ``python -m snappy_tpu_torch.tools.<name>``."""

@@ -24,28 +24,9 @@ from snappy_tpu.ops import decode_xla, pallas_decode
 from snappy_tpu_torch.ops import cuda_decode, decode_torch, select
 
 from conftest import read_testdata
-from torch_helpers import native_block_streams, pack
+from torch_helpers import native_block_streams, pack, synthetic_cases
 
 OUT_SIZE = 1 << 16
-
-
-def _copy2(length, off):
-    return bytes([0x02 | ((length - 1) << 2), off & 0xFF, off >> 8])
-
-
-def _copy1(length, off):
-    return bytes([0x01 | ((length - 4) << 2) | ((off >> 8) << 5), off & 0xFF])
-
-
-def _lit(data):
-    return bytes([(len(data) - 1) << 2]) + data
-
-
-def _rle(base: bytes, n: int, off: int) -> bytes:
-    exp = bytearray(base)
-    for _ in range(n):
-        exp.append(exp[-off])
-    return bytes(exp)
 
 
 def _cases():
@@ -70,41 +51,7 @@ def _cases():
         streams, ulens = native_block_streams(raw)
         for i, (s, u) in enumerate(zip(streams, ulens)):
             cases.append((f"simple-{k}-{i}", s, u, raw[i * OUT_SIZE : i * OUT_SIZE + u]))
-    base = bytes(range(37)) * 2
-    body = _lit(base[:60]) + _lit(base[60:]) + _copy2(64, 74) + _copy2(64, 74) + _copy2(60, 74) + _copy2(14, 74)
-    cases.append(("chain-64-64-60-rem", body, 276, _rle(base, 202, 74)))
-    base = b"abcdefghij" * 2
-    cases.append(("chain-copy1-tail", _lit(base) + _copy2(64, 20) + _copy1(8, 20), 92, _rle(base, 72, 20)))
-    base = bytes(range(60))
-    exp = _rle(_rle(base, 64, 30), 64, 29)
-    cases.append(("chain-different-offset", _lit(base) + _copy2(64, 30) + _copy2(64, 29), 188, exp))
-    body = _lit(b"x") + _copy2(64, 1) + _copy2(64, 1) + _copy2(64, 1) + _copy2(33, 1)
-    cases.append(("chain-rle-folded", body, 226, b"x" * 226))
-    for k in (1, 2, 3, 5, 8):
-        base = bytes((i * 7) & 0xFF for i in range(70))
-        body = _lit(base[:60]) + _lit(base[60:]) + _copy2(64, 70) * k + _copy2(7, 70)
-        cases.append((f"chain-odd-{k}", body, 70 + 64 * k + 7, _rle(base, 64 * k + 7, 70)))
-    corrupt = [
-        ("offset-zero", bytes([0x12, 0x00, 0x00])),
-        ("before-start", bytes([0x61, 0x09, 0x20, 0x00])),
-        ("literal-overrun", bytes([39 << 2, 0x61, 0x62])),
-        ("truncated-long-literal", bytes([0xF8])),
-        ("truncated-copy", bytes([0x01])),
-        ("copy4-wild-offset", bytes([0x0C, 97, 98, 99, 100, 0x0F, 4, 0, 255, 255])),
-    ]
-    for cid, body in corrupt:
-        cases.append((f"corrupt-{cid}", body, 64, None))
-    (s,), _ = native_block_streams(b"A" * 1000)
-    cases.append(("wrong-length-999", s, 999, None))
-    cases.append(("wrong-length-1024", s, 1024, None))
-    cases.append(("copy4", bytes([0x0C, 97, 98, 99, 100, 0x0F, 4, 0, 0, 0]), 8, b"abcdabcd"))
-    (s,), _ = native_block_streams(b"hello world " * 40)
-    cases.append(("trailing-byte-00", s + b"\x00", 480, b"hello world " * 40))
-    cases.append(("trailing-byte-01", s + b"\x01", 480, b"hello world " * 40))
-    base = bytes(range(60))
-    body = _lit(base) + _copy2(64, 30) + _copy2(64, 30)
-    cases.append(("truncated-copy-trailer", body[:-1], 188, None))
-    return cases
+    return cases + synthetic_cases()
 
 
 CASES = _cases()

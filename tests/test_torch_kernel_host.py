@@ -24,13 +24,10 @@ import numpy as np
 import pytest
 import torch
 
-from snappy_tpu_torch.core import varint
-from snappy_tpu_torch.native import runtime as nat
 from snappy_tpu_torch.ops import decode_torch
 from snappy_tpu_torch.ops.kernels import CSRC
 
-from conftest import read_testdata
-from torch_helpers import native_block_streams
+from torch_helpers import kernel_battery, native_body, odd_width_batch
 
 OUT_SIZE = 8192
 GUARD = 64  # canary bytes on each side of the output rows
@@ -133,84 +130,12 @@ def emu(tmp_path_factory):
     return run
 
 
-def _body(raw: bytes) -> bytes:
-    """Headerless tag stream of ``raw`` from the native raw encoder."""
-    c = nat.compress(raw)
-    _, h = varint.parse32(np.frombuffer(c, np.uint8), 0)
-    return c[h:]
-
-
-def _cases():
-    """(tag stream, ulen) rows: corpus slices and long blocks, RLE, the
-    corrupt battery, wrong lengths, trailing bytes, damaged corpus slices and
-    random bytes, all from one seed."""
-    rng = np.random.default_rng(0)
-    cases = []
-    for name in ["html", "fireworks.jpeg", "alice29.txt", "kppkn.gtb", "urls.10K", "paper-100k.pdf"]:
-        data = read_testdata(name)
-        for _ in range(3):
-            n = int(rng.integers(1, OUT_SIZE))
-            s = int(rng.integers(0, len(data) - n))
-            cases.append((_body(data[s : s + n]), n))
-        (s,), (u,) = native_block_streams(data[:OUT_SIZE], OUT_SIZE)
-        cases.append((s, u))
-    for raw in (b"q" * 5000, b"ab" * 2000, b"abcdefg" * 700, bytes(range(256)) * 32):
-        cases.append((_body(raw), len(raw)))
-    cases += [
-        (bytes([0x12, 0x00, 0x00]), 64),  # copy offset 0
-        (bytes([0x61, 0x09, 0x20, 0x00]), 64),  # copy reaches before the output start
-        (bytes([39 << 2, 0x61, 0x62]), 64),  # literal overruns the input
-        (bytes([0xF8]), 64),  # truncated long-form literal tag
-        (bytes([0x01]), 64),  # truncated copy tag
-        (bytes([0x0C, 97, 98, 99, 100, 0x0F, 4, 0, 255, 255]), 64),  # COPY_4 wild offset
-        (bytes([0x0C, 97, 98, 99, 100, 0x0F, 4, 0, 0, 0]), 8),  # COPY_4
-        (bytes([0x0C, 97, 98, 99, 100, 0x01, 4]), 8),  # COPY_1 from the very start
-        (bytes([0x0C, 97, 98, 99, 100, 0x01, 5]), 8),  # COPY_1 one byte before the start
-        (bytes([0xF0, 3]) + b"wxyz", 4),  # long-form literal, 1 length byte
-        (bytes(range(60)).join([bytes([59 << 2]), bytes([0x02 | (63 << 2), 30])]), 124),  # cut COPY_2
-        (b"", 0),
-        (b"\x00", 0),
-        (b"\x00a", 1),
-    ]
-    hello = _body(b"hello world " * 40)
-    cases += [(hello, 479), (hello, 481), (hello + b"\x00", 480), (hello + b"\x01", 480)]
-    for b, u in list(cases[:22]):
-        for _ in range(4):
-            bb, k = bytearray(b), int(rng.integers(0, 4))
-            if k == 0 and bb:
-                bb[int(rng.integers(0, len(bb)))] = int(rng.integers(0, 256))
-            elif k == 1 and bb:
-                bb = bb[: int(rng.integers(0, len(bb)))]
-            elif k == 2:
-                bb += bytes([int(rng.integers(0, 256))])
-            else:
-                u = max(0, u + int(rng.integers(-3, 4)))
-            cases.append((bytes(bb), min(u, OUT_SIZE)))
-    for _ in range(24):
-        n = int(rng.integers(0, 64))
-        cases.append((rng.integers(0, 256, n, dtype=np.uint8).tobytes(), int(rng.integers(0, 300))))
-    return cases
-
-
-def _batch(cases):
-    """Rows of a width that is not a multiple of 16, so that the shared-memory
-    staging meets rows aligned to 16 bytes and rows that are not."""
-    width = max(len(b) for b, _ in cases) + 4
-    width += 1 if width % 16 == 0 else 0
-    comp = np.zeros((len(cases), width), np.uint8)
-    for i, (b, _) in enumerate(cases):
-        comp[i, : len(b)] = np.frombuffer(b, np.uint8)
-    clens = np.array([len(b) for b, _ in cases], np.int32)
-    ulens = np.array([u for _, u in cases], np.int32)
-    return comp, clens, ulens
-
-
 STAGING = pytest.mark.parametrize("staged", [True, False], ids=["shared-memory", "device-memory"])
 
 
 @STAGING
 def test_kernel_matches_plain_version(emu, staged):
-    comp, clens, ulens = _batch(_cases())
+    comp, clens, ulens = odd_width_batch(kernel_battery(OUT_SIZE))
     p_out, p_ok, p_total = (
         x.numpy()
         for x in decode_torch.decode_blocks(
@@ -229,7 +154,7 @@ def test_kernel_refuses_lengths_outside_the_batch(emu, staged):
     """Lengths the CUDA wrapper does not read on the host: the kernel's own
     guard turns such a row into a not-ok, all-zero row; the rows around it
     decode as usual."""
-    good = _body(b"hello world " * 40)
+    good = native_body(b"hello world " * 40)
     width = len(good) + 4 + 3
     bad = [(width - 3, 480), (-1, 480), (len(good), OUT_SIZE + 1), (len(good), -5)]
     rows = [(len(good), 480)] + bad + [(len(good), 480)]
