@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive snappy_tpu_torch's read and write paths and the decode A/B once on one CUDA GPU (Hopper, sm_90).
+"""Drive snappy_tpu_torch's read and write paths, the decode A/B and the probes once on one CUDA GPU (Hopper, sm_90).
 
     python3 chip_smoke.py
 
@@ -8,8 +8,8 @@ Run from the root of the repository, with no arguments; it uses one card
 non-zero:
 
   1. device   name, capability (must be 9.0), nvidia-smi name and power limit
-  2. build    the native C++ codec (g++) and the three CUDA kernels (one
-              nvcc per source, all at once)
+  2. build    the native C++ codec (g++) and the CUDA kernels (one nvcc per
+              source, all at once)
   3. kernel   the CUDA block decoder against its plain torch version on one
               batch on the card: 128 corpus blocks of 64 KiB, the corrupt
               battery, RLE blocks, wrong claimed lengths, a trailing byte,
@@ -53,6 +53,15 @@ non-zero:
               utils/metrics.time_device_fn; each kernel's GB/s, the ratio
               vs_r4_same_run (K1 over K3) and the faster kernel. K3's launches
               are counted over this phase
+ 12. probes   the round-4 probe kernels P1-P6 (csrc/exp_vector_walk.cu), every
+              variant against its plain version, bit for bit, at its high
+              knob (P2 and P3 also on the stalled data of the reference's
+              generator), or at a small knob for P1 and P5, whose plain
+              versions step through every iteration; then, with the launch
+              counts reset just before and read just after,
+              tools/exp_vector_walk.run times each at the script's two
+              knobs: ns and cycles a step by the slope, one line a variant
+              and a {"probes": [...]} line
 
 Before the last line it prints the card's `nvidia-smi` name and power limit
 and one JSON line {"kernels": [...]} with each kernel's launches on its main
@@ -60,9 +69,14 @@ path, its largest difference from the plain version, its time beside the
 plain version's at the main path's shape, and its bound: the larger of the
 bytes it must move (inputs read once, outputs written once, as this run's
 data needs them) over the H100's 3.35 TB/s and its operations (one integer
-operation per byte read or written) over 67 TOP/s. No PyTorch call computes
-a Snappy block decode or encode, so library_ms is null. Times are
-informational. The last line is {"ok": true, "device": {...}}. Without a
+operation per byte read or written for the codecs; for a probe, its
+estimated operations a step times its steps) over 67 TOP/s. A probe's entry
+is that of its first variant, named in "variant", with its time at the high
+knob ("knob"), and the plain version's and the kernel's at the gate knob
+("plain_knob": "plain_ms", "ms_at_plain_knob"); the gate knob is the high
+knob but for P1 and P5. No
+PyTorch call computes a Snappy block decode or encode or a probe, so
+library_ms is null. Times are informational. The last line is {"ok": true, "device": {...}}. Without a
 CUDA device it exits with code 2 and prints no result. It imports no JAX and
 nothing of snappy_tpu.
 """
@@ -89,6 +103,15 @@ OPS_PER_S = 67e12
 CORPUS = [
     "alice29.txt", "html", "urls.10K", "fireworks.jpeg", "paper-100k.pdf",
     "lcet10.txt", "plrabn12.txt", "geo.protodata", "kppkn.gtb", "sample-tweet.json",
+]
+# The probe kernels: (launch count key, kernel name, the TPU kernel's body).
+PROBE_KERNELS = [
+    ("chain", "probe_chain", "benchmarks/exp_vector_walk.py:106"),
+    ("walk8", "probe_walk8", "benchmarks/exp_vector_walk.py:167"),
+    ("walk_scalar", "probe_walk_scalar", "benchmarks/exp_vector_walk.py:253"),
+    ("drain", "probe_drain", "benchmarks/exp_vector_walk.py:389"),
+    ("scalar_loop", "probe_scalar_loop", "benchmarks/exp_vector_walk.py:515"),
+    ("when_drain", "probe_when_drain", "benchmarks/exp_vector_walk.py:597"),
 ]
 # The files of the per-file density gate (tests/test_tpu_compiled.py).
 DENSITY_FILES = [
@@ -130,12 +153,12 @@ def block_streams(nat, raw: bytes) -> tuple[list[bytes], np.ndarray]:
     return nat.compress_rows(buf, blens, np.arange(n)), blens
 
 
-def bound(in_bytes: int, out_bytes: int) -> tuple[float, str]:
+def bound(in_bytes: int, out_bytes: int, ops: int | None = None) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time the card could take to
-    read ``in_bytes`` and write ``out_bytes``, doing one integer operation
-    per byte."""
+    read ``in_bytes`` and write ``out_bytes`` and do ``ops`` integer
+    operations (by default one per byte)."""
     by_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    by_ops = (in_bytes + out_bytes) / OPS_PER_S * 1e3
+    by_ops = (in_bytes + out_bytes if ops is None else ops) / OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -164,12 +187,13 @@ def main() -> int:
     from snappy_tpu_torch.native import libsnappy
     from snappy_tpu_torch.native import runtime as nat
     from snappy_tpu_torch.ops import (
-        cuda_decode, cuda_decode_r4, cuda_encode, decode_torch, encode_torch, kernels, route,
+        cuda_decode, cuda_decode_r4, cuda_encode, cuda_probes, decode_torch, encode_torch, kernels, route,
     )
     from snappy_tpu_torch.ops.encode_torch import ENC_PAD
     from snappy_tpu_torch.ops.host import blockify, pack_rows
     from snappy_tpu_torch.parallel import framed
     from snappy_tpu_torch.parallel import host as fhost
+    from snappy_tpu_torch.tools import exp_vector_walk
     from snappy_tpu_torch.utils.metrics import Metrics, time_device_fn
 
     def device_ms(fn, args, iters: int, warmup: int = 1) -> float:
@@ -196,7 +220,7 @@ def main() -> int:
     t1 = time.perf_counter()
     kernels.load()
     t2 = time.perf_counter()
-    print(f"[2 build] native g++ {t1 - t0:.2f} s, CUDA nvcc (three kernels at once) {t2 - t1:.2f} s "
+    print(f"[2 build] native g++ {t1 - t0:.2f} s, CUDA nvcc ({len(kernels.ENTRIES)} sources at once) {t2 - t1:.2f} s "
           f"(cached libraries load in ~0 s)", flush=True)
 
     # 3. kernel against its plain version on the card, one batch
@@ -582,6 +606,46 @@ def main() -> int:
           f"K3 launches {r4_launches}; K3 plain version {r4_plain_ms:.4f} ms on the own streams", flush=True)
     print(json.dumps({"decode_ab": ab_metrics.results}), flush=True)
 
+    # 12. the probes P1-P6: gates, then the tool's timing runs as the main path
+    t0 = time.perf_counter()
+    probes = exp_vector_walk.probes("all", dev)
+    gates = {p.name: exp_vector_walk.gate(p) for p in probes}
+    print(f"[12 probes] {len(probes)} variants of P1-P6 identical to their plain versions at their gate knobs "
+          f"(P2 and P3 also on the reference generator's stalled data)", flush=True)
+    for variant, g in gates.items():
+        print(f"[12 probes] {variant:30s} at knob {g['plain_knob']}: kernel {g['kernel_ms']:.4f} ms, "
+              f"plain version {g['plain_ms']:.4f} ms", flush=True)
+    for key in cuda_probes.launches:
+        cuda_probes.launches[key] = 0
+    probe_rows = exp_vector_walk.run(probes, prefix="[12 probes] ")
+    probe_launches = dict(cuda_probes.launches)
+    for key, n in probe_launches.items():
+        check(n > 0, f"phase 12 did not launch the {key} kernel")
+    print(f"[12 probes] on {card}: launches {probe_launches}; phase {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"probes": probe_rows}), flush=True)
+    probe_entries = []
+    for key, kname, replaces in PROBE_KERNELS:
+        first = next(r for r in probe_rows if r["kernel"] == key)
+        g = gates[first["probe"]]
+        b = bound(first["in_bytes"], first["out_bytes"], first["ops"])
+        probe_entries.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "snappy_tpu_torch/csrc/exp_vector_walk.cu",
+            "replaces": replaces,
+            "launches": probe_launches[key],
+            "max_abs_err": max(gates[p.name]["max_abs_err"] for p in probes if p.kernel == key),
+            "ms": first["ms_hi"],
+            "plain_ms": g["plain_ms"],
+            "bound_ms": b[0],
+            "bound_by": b[1],
+            "library_ms": None,
+            "variant": first["probe"],
+            "knob": first["knob_hi"],
+            "plain_knob": g["plain_knob"],
+            "ms_at_plain_knob": g["kernel_ms"],
+        })
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "decode_blocks",
@@ -619,7 +683,7 @@ def main() -> int:
         "bound_ms": k3_bound[0],
         "bound_by": k3_bound[1],
         "library_ms": None,
-    }]}), flush=True)
+    }, *probe_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
     return 0

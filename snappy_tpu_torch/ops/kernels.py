@@ -37,6 +37,15 @@ ENTRIES = {
     "decode_blocks_r4": {
         "snappy_cuda_decode_blocks_r4": (_INT, _DECODE_ARGS),
     },
+    # The probes P1-P6; each entry point ends with (cycles or null, stream).
+    "exp_vector_walk": {
+        "snappy_probe_chain": (_INT, [_INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR]),
+        "snappy_probe_walk8": (_INT, [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]),
+        "snappy_probe_walk_scalar": (_INT, [_INT, _I64, _PTR, _PTR, _PTR, _PTR, _PTR]),
+        "snappy_probe_drain": (_INT, [_INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]),
+        "snappy_probe_scalar_loop": (_INT, [_INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR]),
+        "snappy_probe_when_drain": (_INT, [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]),
+    },
 }
 
 _lib = None

@@ -1,0 +1,320 @@
+"""The probe kernels' own source, compiled with g++ as a host emulation of
+their thread blocks, against the plain versions on the CPU.
+
+The kernels cannot run without a card, so this holds their logic here: the
+device code of ``snappy_tpu_torch/csrc/exp_vector_walk.cu`` (everything before
+its launch section) is compiled unchanged but for two textual substitutions,
+with one ``std::thread`` per thread of a block, a ``std::barrier`` for
+``__syncthreads`` and one per warp for ``__syncwarp``, the warp intrinsics
+(``__shfl_sync``, ``__reduce_add_sync``, ``__reduce_max_sync``,
+``__any_sync``, ``__all_sync``) through a per-warp exchange array, and a
+static buffer for shared memory. The blocks of a grid run one after another.
+The kernels are picked by the source's own dispatch functions.
+
+Tolerance: exact, whole arrays, and nothing written outside them (a guard
+zone on each side of every output).
+"""
+
+import ctypes
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from snappy_tpu_torch.ops import probes_torch as pt
+from snappy_tpu_torch.ops.kernels import CSRC
+from snappy_tpu_torch.tools.exp_vector_walk import drain_inputs, when_inputs
+
+GUARD = 64  # canary words on each side of an output
+CANARY = 0x5A5A5A5A
+
+_PRELUDE = r"""
+#include <barrier>
+#include <cstdint>
+#include <memory>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __restrict__ __restrict
+struct Idx { int64_t x; };
+thread_local Idx threadIdx, blockIdx;
+constexpr int kEmuMaxWarps = 8;
+static std::barrier<>* g_block_bar;
+static std::barrier<>* g_warp_bar[kEmuMaxWarps];
+static uint32_t g_xchg[kEmuMaxWarps][32];
+static inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
+static inline void __syncwarp(unsigned = 0xFFFFFFFFu) { g_warp_bar[threadIdx.x / 32]->arrive_and_wait(); }
+static inline long long clock64() { return 0; }
+// Every lane of the warp posts v; `all` receives the 32 values.
+static inline void emu_post(uint32_t v, uint32_t* all) {
+  const int64_t w = threadIdx.x / 32, l = threadIdx.x % 32;
+  __syncwarp();
+  g_xchg[w][l] = v;
+  __syncwarp();
+  for (int i = 0; i < 32; ++i) all[i] = g_xchg[w][i];
+}
+template <class T>
+static inline T __shfl_sync(unsigned, T v, int src) {
+  uint32_t all[32];
+  emu_post(static_cast<uint32_t>(v), all);
+  return static_cast<T>(all[src & 31]);
+}
+static inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  uint32_t all[32];
+  emu_post(v, all);
+  unsigned s = 0;
+  for (uint32_t a : all) s += a;
+  return s;
+}
+static inline int __reduce_max_sync(unsigned, int v) {
+  uint32_t all[32];
+  emu_post(static_cast<uint32_t>(v), all);
+  int m = static_cast<int>(all[0]);
+  for (uint32_t a : all) m = static_cast<int>(a) > m ? static_cast<int>(a) : m;
+  return m;
+}
+static inline int __any_sync(unsigned, int p) {
+  uint32_t all[32];
+  emu_post(p != 0, all);
+  for (uint32_t a : all) if (a) return 1;
+  return 0;
+}
+static inline int __all_sync(unsigned, int p) {
+  uint32_t all[32];
+  emu_post(p != 0, all);
+  for (uint32_t a : all) if (!a) return 0;
+  return 1;
+}
+constexpr int64_t kEmuSmemWords = (1 << 18) / 4;
+alignas(16) static int32_t g_smem[kEmuSmemWords];
+"""
+
+_HARNESS = r"""
+// Run `body` as `blocks` blocks of `threads` std::threads, one block at a time.
+template <class F>
+static void emu_grid(int blocks, int threads, F body) {
+  std::barrier<> bar(threads);
+  g_block_bar = &bar;
+  std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+  for (int w = 0; w < threads / 32; ++w) {
+    warp_bars.emplace_back(new std::barrier<>(32));
+    g_warp_bar[w] = warp_bars.back().get();
+  }
+  std::vector<std::thread> ts;
+  for (int t = 0; t < threads; ++t)
+    ts.emplace_back([&, t] {
+      threadIdx.x = t;
+      for (int b = 0; b < blocks; ++b) {
+        blockIdx.x = b;
+        body();
+        bar.arrive_and_wait();
+      }
+    });
+  for (auto& t : ts) t.join();
+}
+
+static_assert(kWalkSmem <= kEmuSmemWords * 4 && kWhenSmem <= kEmuSmemWords * 4, "emulated shared memory");
+
+extern "C" int emu_chain(int mode, int g, int reps, const int32_t* x, int32_t* out) {
+  ChainKernel k = chain_for(mode, g);
+  if (!k) return 1;
+  emu_grid(1, kChainThreads, [&] { k(reps, x, out, nullptr); });
+  return 0;
+}
+
+extern "C" int emu_walk8(int groups, int nrow, const int32_t* clen, const int32_t* cmds, int32_t* rec, int32_t* meta) {
+  emu_grid(groups, kWarp, [&] { walk8_kernel(nrow, clen, cmds, rec, meta, nullptr); });
+  return 0;
+}
+
+extern "C" int emu_walk_scalar(int blocks, int64_t rounds, const int32_t* clen, const int32_t* cmds, int32_t* meta) {
+  emu_grid(blocks, kWalkThreads, [&] { walk_scalar_kernel(rounds, clen, cmds, meta, nullptr); });
+  return 0;
+}
+
+extern "C" int emu_drain(int mode, int nrec, int nsrc, const int32_t* q0, const int32_t* r, const int32_t* fld,
+                         const int32_t* src, int32_t* out) {
+  DrainKernel k = drain_for(mode);
+  if (!k) return 1;
+  emu_grid(1, mode == kDrainSerial ? kLanes : kDrain8Threads, [&] { k(nrec, nsrc, q0, r, fld, src, out, nullptr); });
+  return 0;
+}
+
+extern "C" int emu_scalar_loop(int work, int unroll, int cond, int chain, int n, const int32_t* x, int32_t* out) {
+  ScalarKernel k = scalar_loop_for(work, unroll, cond, chain);
+  if (!k) return 1;
+  emu_grid(1, kWarp, [&] { k(n, x, out, nullptr); });
+  return 0;
+}
+
+extern "C" int emu_when_drain(int mode, int ngroups, const int32_t* q, const int32_t* r, const int32_t* src,
+                              int32_t* out) {
+  WhenKernel k = when_for(mode);
+  if (!k) return 1;
+  emu_grid(1, kLanes, [&] { k(ngroups, q, r, src, out, nullptr); });
+  return 0;
+}
+"""
+
+# (text in the kernel source, its host replacement)
+_SUBSTITUTIONS = [
+    ("#include <cuda_runtime.h>", ""),
+    ("extern __shared__ __align__(16) int32_t smem_words[];", "int32_t* smem_words = g_smem;"),
+]
+_CUT = "// ------------------------------------------------------------------ launch"
+
+
+def _emulation_source() -> str:
+    src = (CSRC / "exp_vector_walk.cu").read_text()
+    assert src.count(_CUT) == 1, "kernel source no longer holds its launch section marker"
+    src = src[: src.index(_CUT)]
+    for old, new in _SUBSTITUTIONS:
+        assert src.count(old) == 1, f"kernel source no longer holds {old!r}"
+        src = src.replace(old, new)
+    return _PRELUDE + src + _HARNESS
+
+
+class _Out:
+    """An int32 output with a guard zone on each side."""
+
+    def __init__(self, shape):
+        self.shape = shape
+        self.buf = np.full(int(np.prod(shape)) + 2 * GUARD, CANARY, np.int32)
+        self.ptr = self.buf.ctypes.data + 4 * GUARD
+
+    def get(self):
+        assert (self.buf[:GUARD] == CANARY).all() and (self.buf[-GUARD:] == CANARY).all(), "wrote outside the output"
+        return self.buf[GUARD:-GUARD].reshape(self.shape)
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    d = tmp_path_factory.mktemp("exp_vector_walk_host")
+    cpp, so = d / "exp_vector_walk_host.cpp", d / "exp_vector_walk_host.so"
+    cpp.write_text(_emulation_source())
+    proc = subprocess.run(
+        ["g++", "-std=c++20", "-O1", "-pthread", "-fPIC", "-shared", "-Wall", str(cpp), "-o", str(so)],
+        capture_output=True, text=True,
+    )
+    assert proc.returncode == 0, proc.stderr
+    lib = ctypes.CDLL(str(so))
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.emu_chain.argtypes = [i, i, i, p, p]
+    lib.emu_walk8.argtypes = [i, i, p, p, p, p]
+    lib.emu_walk_scalar.argtypes = [i, i64, p, p, p]
+    lib.emu_drain.argtypes = [i, i, i, p, p, p, p, p]
+    lib.emu_scalar_loop.argtypes = [i, i, i, i, i, p, p]
+    lib.emu_when_drain.argtypes = [i, i, p, p, p, p]
+    return lib
+
+
+def _ptr(a: np.ndarray) -> int:
+    assert a.dtype == np.int32 and a.flags.c_contiguous
+    return a.ctypes.data
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("mode", pt.CHAIN_MODES)
+def test_chain(emu, mode, g):
+    x = np.random.default_rng(2).integers(0, 1 << 20, (g, 8, pt.LANES)).astype(np.int32)
+    for reps in (0, 23):
+        out = _Out(x.shape)
+        assert emu.emu_chain(pt.CHAIN_MODES.index(mode), g, reps, _ptr(x), out.ptr) == 0
+        np.testing.assert_array_equal(out.get(), pt.chain(reps, _t(x), mode).numpy())
+
+
+def _walk8(emu, clen, cmds_g, nrow):
+    g = cmds_g.shape[0]
+    rec, meta = _Out((g, pt.T_TILES, 8, pt.LANES)), _Out((g, 1, 2))
+    assert emu.emu_walk8(g, nrow, _ptr(clen), _ptr(cmds_g), rec.ptr, meta.ptr) == 0
+    return rec.get(), meta.get()
+
+
+def _groups(cmds):
+    return cmds.reshape(-1, 8, pt.R_ROWS, pt.LANES).transpose(0, 2, 1, 3).copy()
+
+
+@pytest.mark.parametrize(
+    "max_advance, nrow", [(7, 45), (7, pt.R_ROWS), (8, pt.R_ROWS)], ids=["45-rows", "full", "stalled"]
+)
+def test_walk8(emu, max_advance, nrow):
+    """Two groups; on the reference's data (max_advance 8) walks stall and
+    rows end at the burst cap, as in the plain version."""
+    cmds_g = _groups(pt.synth_cmds(16, seed=1, max_advance=max_advance)[0])
+    clen = np.full((2, 8, pt.LANES), pt.NCP, np.int32)
+    clen[1, 5] = 3_000
+    rec, meta = _walk8(emu, clen, cmds_g, nrow)
+    p_rec, p_meta = pt.walk8(nrow, _t(clen), _t(cmds_g))
+    np.testing.assert_array_equal(meta, p_meta.numpy())
+    np.testing.assert_array_equal(rec, p_rec.numpy())
+
+
+def test_walk8_refuses_a_length_that_varies_over_lanes(emu):
+    cmds_g = _groups(pt.synth_cmds(16, seed=1, max_advance=7)[0])
+    clen = np.full((2, 8, pt.LANES), pt.NCP, np.int32)
+    clen[0, 2, 77] = 100
+    rec, meta = _walk8(emu, clen, cmds_g, 20)
+    assert meta[0].tolist() == [[-1, -1]] and (rec[0] == pt.INT_MIN).all()
+    p_rec, p_meta = pt.walk8(20, _t(clen[1:]), _t(cmds_g[1:]))
+    np.testing.assert_array_equal(meta[1:], p_meta.numpy())
+    np.testing.assert_array_equal(rec[1:], p_rec.numpy())
+
+
+@pytest.mark.parametrize("knob, max_advance", [(0, 8), (1, 8), (2, 7)])
+def test_walk_scalar(emu, knob, max_advance):
+    cmds, _ = pt.synth_cmds(3, max_advance=max_advance)
+    clen = np.array([pt.NCP, 5_000, pt.NCP + 300], np.int32).reshape(3, 1, 1)
+    meta = _Out((3, 1, 2))
+    rounds = knob * pt.NCP // 5 // 16 + 1
+    assert emu.emu_walk_scalar(3, rounds, _ptr(clen), _ptr(cmds), meta.ptr) == 0
+    np.testing.assert_array_equal(meta.get(), pt.walk_scalar(knob, _t(clen), _t(cmds.reshape(3, 1, pt.NCP))).numpy())
+
+
+@pytest.mark.parametrize("mode", pt.DRAIN_MODES)
+@pytest.mark.parametrize("fields", ["per-record", "per-lane"])
+def test_drain(emu, mode, fields):
+    q0, r, fld, src = drain_inputs()
+    if fields == "per-lane":
+        fld = np.random.default_rng(9).integers(0, 1 << 28, fld.shape).astype(np.int32)
+        r[1::4] = r[::4]
+    q0[5], r[9] = pt.NSRC + 40, -3  # rows outside the arrays: clamped
+    for knob in (0, 68, 512):
+        out = _Out((pt.NSRC + 8, pt.LANES))
+        assert emu.emu_drain(pt.DRAIN_MODES.index(mode), knob, pt.NSRC, *map(_ptr, (q0, r, fld, src)), out.ptr) == 0
+        np.testing.assert_array_equal(out.get(), pt.drain(knob, _t(q0), _t(r), _t(fld), _t(src), mode).numpy())
+
+
+@pytest.mark.parametrize("variant", pt.SCALAR_VARIANTS, ids=[v[0] for v in pt.SCALAR_VARIANTS])
+def test_scalar_loop(emu, variant):
+    _, work, unroll, cond, chain = variant
+    x = np.random.default_rng(6).integers(-(1 << 31), 1 << 31, 1024).astype(np.int32)
+    for n in (0, 37, 300):
+        out = _Out((1,))
+        assert emu.emu_scalar_loop(work, unroll, int(cond), int(chain), n, _ptr(x), out.ptr) == 0
+        np.testing.assert_array_equal(out.get(), pt.scalar_loop(n, _t(x), work, unroll, cond, chain).numpy())
+
+
+def test_unknown_variants_are_refused(emu):
+    x = np.zeros(1024, np.int32)
+    out = _Out((4, 8, pt.LANES))
+    assert emu.emu_scalar_loop(5, 1, 0, 0, 10, _ptr(x), out.ptr) == 1
+    assert emu.emu_chain(0, 2, 1, _ptr(np.zeros((2, 8, pt.LANES), np.int32)), out.ptr) == 1
+    assert emu.emu_drain(3, 8, pt.NSRC, *(_ptr(x),) * 4, out.ptr) == 1
+
+
+@pytest.mark.parametrize("mode", pt.WHEN_MODES)
+def test_when_drain(emu, mode):
+    q, r, src = when_inputs()
+    r[7] = 600  # a row outside the output: clamped
+    for knob in (100, pt.WHEN_RECORDS + 64):
+        out = _Out((pt.WHEN_OUT_ROWS, pt.LANES))
+        assert emu.emu_when_drain(pt.WHEN_MODES.index(mode), knob // 8, *map(_ptr, (q, r, src)), out.ptr) == 0
+        np.testing.assert_array_equal(out.get(), pt.when_drain(knob, _t(q), _t(r), _t(src), mode).numpy())
