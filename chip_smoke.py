@@ -23,10 +23,15 @@ non-zero:
               baddata{1,2,3}.snappy must raise CorruptInputError
   6. corrupt  a frame with a flipped crc and one with a damaged block must raise
   7. encode kernel  the CUDA block encoder against its plain torch version
-              on one batch on the card, for min_profit 2 and 1: 128 corpus
-              blocks, sentinel (ff) rows, RLE rows, lengths 0-3, a match
-              into the zero padding, random bytes, and rows whose blen does
-              not fit the batch, which the kernel refuses
+              on one batch on the card, for min_profit 2, 1, 0 and 3: 128
+              corpus blocks, sentinel (ff) rows, RLE rows, lengths 0-3, a
+              match into the zero padding, random bytes, the rows of
+              tools/profile_encode.chase_rows (more takes than a record
+              chunk, matches of exactly 7, 8 and 9 bytes, 64 KiB runs, a
+              match cut at the row's end, literals across chunks, chunks
+              that end full, colliding keys),
+              and rows whose blen does not fit the batch, which the kernel
+              refuses
   8. write slice  the same 64 MiB corpus mix through
               compress_framed(raw, device="cuda"): the write path's main
               path, with the encoder's launch count reset just before and
@@ -193,7 +198,7 @@ def main() -> int:
     from snappy_tpu_torch.ops.host import blockify, pack_rows
     from snappy_tpu_torch.parallel import framed
     from snappy_tpu_torch.parallel import host as fhost
-    from snappy_tpu_torch.tools import exp_vector_walk
+    from snappy_tpu_torch.tools import exp_vector_walk, profile_encode
     from snappy_tpu_torch.utils.metrics import Metrics, time_device_fn
 
     def device_ms(fn, args, iters: int, warmup: int = 1) -> float:
@@ -218,7 +223,7 @@ def main() -> int:
     t0 = time.perf_counter()
     nat.max_compressed_length(0)
     t1 = time.perf_counter()
-    kernels.load()
+    kernels.load(*kernels.ENTRIES)
     t2 = time.perf_counter()
     print(f"[2 build] native g++ {t1 - t0:.2f} s, CUDA nvcc ({len(kernels.ENTRIES)} sources at once) {t2 - t1:.2f} s "
           f"(cached libraries load in ~0 s)", flush=True)
@@ -375,6 +380,8 @@ def main() -> int:
     rows += [b"\xff" * BLOCK, b"\xff" * 5000, b"\xff\xff\xff\xff\x01" * 400, b"q" * BLOCK, b"ab" * 20000]
     rows += [r[:BLOCK] for r in rle_raws] + [b"", b"a", b"ab", b"abc", b"xyzw\x00\x00\x00\x00xyzw"]
     rows += [rng.integers(0, 256, 60000, dtype=np.uint8).tobytes(), bytes(range(256)) * 8]
+    chase = profile_encode.chase_rows()
+    rows += list(chase.values())
     e_blocks = np.zeros((len(rows) + 2, width), np.uint8)
     e_blens = np.zeros(len(rows) + 2, np.int32)
     for i, r in enumerate(rows):
@@ -385,7 +392,7 @@ def main() -> int:
     blocks_t = torch.from_numpy(e_blocks).to(dev)
     blens_t = torch.from_numpy(e_blens).to(dev)
     err7 = 0
-    for mp in (2, 1):
+    for mp in (2, 1, 0, 3):
         k_out, k_olens = cuda_encode.encode_blocks(blocks_t, blens_t, mp)
         p_out, p_olens = encode_torch.encode_blocks(blocks_t, blens_t, mp)
         torch.cuda.synchronize()
@@ -400,9 +407,10 @@ def main() -> int:
             stream = bytes(varint.encode32(len(r))) + out_np[i, : lens[i]].tobytes()
             check(nat.uncompress(stream) == r, f"min_profit {mp}: row {i} does not decode to its block")
     print(f"[7 encode kernel] {len(rows) + 2} rows (128 corpus blocks + ff rows + RLE + lengths 0-3 + "
-          f"match into the padding + random + 2 rows outside the batch), min_profit 2 and 1: out, olens "
-          f"identical to the plain version; max |kernel - plain| = {err7}; every row decodes under the "
-          f"native decoder; 2 rows refused", flush=True)
+          f"match into the padding + random + the chase's {len(chase)} rows: {', '.join(chase)}; "
+          f"+ 2 rows outside the batch), min_profit 2, 1, 0 and 3: out, olens identical to the plain version; "
+          f"max |kernel - plain| = {err7}; every row decodes under the native decoder; 2 rows refused "
+          f"(a chase chunk holds {profile_encode.record_chunk()} records)", flush=True)
 
     # 8. the write path at full size: the 64 MiB corpus mix through compress_framed
     cuda_encode.launches = 0

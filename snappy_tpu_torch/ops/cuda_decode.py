@@ -50,10 +50,10 @@ def check_args(comp, clens, ulens, out_size: int) -> None:
         raise ValueError(f"need 0 <= ulens <= out_size={out_size} and 0 <= clens <= C-{COMP_PAD}")
 
 
-def launch(entry: str, comp: torch.Tensor, clens: torch.Tensor, ulens: torch.Tensor, out_size: int):
+def launch(stem: str, entry: str, comp: torch.Tensor, clens: torch.Tensor, ulens: torch.Tensor, out_size: int):
     """Allocate (out, ok, total) on comp's CUDA device and launch the block
-    decoder ``entry`` of the kernel library on them (checked arguments; no
-    launch for zero rows)."""
+    decoder ``entry`` of the kernel source ``stem`` on them (checked
+    arguments; no launch for zero rows)."""
     b, c = comp.shape
     out = torch.empty((b, out_size), dtype=torch.uint8, device=comp.device)
     ok = torch.empty(b, dtype=torch.bool, device=comp.device)
@@ -61,7 +61,7 @@ def launch(entry: str, comp: torch.Tensor, clens: torch.Tensor, ulens: torch.Ten
     if b == 0:
         return out, ok, total
     with torch.cuda.device(comp.device):
-        rc = getattr(kernels.load(), entry)(
+        rc = getattr(kernels.load(stem), entry)(
             comp.data_ptr(), clens.data_ptr(), ulens.data_ptr(), b, c, out_size,
             out.data_ptr(), ok.data_ptr(), total.data_ptr(),
             torch.cuda.current_stream(comp.device).cuda_stream,
@@ -78,7 +78,7 @@ def decode_blocks(comp: torch.Tensor, clens: torch.Tensor, ulens: torch.Tensor, 
         return decode_torch.decode_blocks(comp, clens, ulens, out_size)
     if comp.device.type != "cuda":
         raise ValueError(f"no block decoder for device {comp.device}")
-    res = launch("snappy_cuda_decode_blocks", comp, clens, ulens, out_size)
+    res = launch("decode_blocks", "snappy_cuda_decode_blocks", comp, clens, ulens, out_size)
     if comp.shape[0]:
         launches += 1
     return res

@@ -34,7 +34,7 @@ def decode_blocks(comp: torch.Tensor, clens: torch.Tensor, ulens: torch.Tensor, 
         return decode_torch.decode_blocks_r4(comp, clens, ulens, out_size)
     if comp.device.type != "cuda":
         raise ValueError(f"no block decoder for device {comp.device}")
-    res = cuda_decode.launch("snappy_cuda_decode_blocks_r4", comp, clens, ulens, out_size)
+    res = cuda_decode.launch("decode_blocks_r4", "snappy_cuda_decode_blocks_r4", comp, clens, ulens, out_size)
     if comp.shape[0]:
         launches += 1
     return res

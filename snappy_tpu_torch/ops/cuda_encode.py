@@ -50,6 +50,25 @@ def _check_args(blocks, blens, min_profit: int) -> None:
         raise ValueError(f"need 0 <= blens <= W - {ENC_PAD} = {w - ENC_PAD}")
 
 
+def launch(blocks: torch.Tensor, blens: torch.Tensor, min_profit: int):
+    """Allocate (out, olens) on the device of ``blocks`` and launch the
+    kernel on them (checked arguments; no launch for zero rows)."""
+    b, w = blocks.shape
+    out = torch.empty((b, BLOCK_MAX_OUT), dtype=torch.uint8, device=blocks.device)
+    olens = torch.empty(b, dtype=torch.int32, device=blocks.device)
+    if b == 0:
+        return out, olens
+    lib = kernels.load("encode_blocks")
+    with torch.cuda.device(blocks.device):
+        rc = lib.snappy_cuda_encode_blocks(
+            blocks.data_ptr(), blens.data_ptr(), b, w, BLOCK_MAX_OUT, min_profit,
+            out.data_ptr(), olens.data_ptr(),
+            torch.cuda.current_stream(blocks.device).cuda_stream,
+        )
+    kernels.check(rc, "encode_blocks launch")
+    return out, olens
+
+
 def encode_blocks(blocks: torch.Tensor, blens: torch.Tensor, min_profit: int):
     """Encode B blocks into headerless tag streams; see the module docstring."""
     global launches
@@ -58,18 +77,7 @@ def encode_blocks(blocks: torch.Tensor, blens: torch.Tensor, min_profit: int):
         return encode_torch.encode_blocks(blocks, blens, min_profit)
     if blocks.device.type != "cuda":
         raise ValueError(f"no block encoder for device {blocks.device}")
-    b, w = blocks.shape
-    out = torch.empty((b, BLOCK_MAX_OUT), dtype=torch.uint8, device=blocks.device)
-    olens = torch.empty(b, dtype=torch.int32, device=blocks.device)
-    if b == 0:
-        return out, olens
-    lib = kernels.load()
-    with torch.cuda.device(blocks.device):
-        rc = lib.snappy_cuda_encode_blocks(
-            blocks.data_ptr(), blens.data_ptr(), b, w, BLOCK_MAX_OUT, min_profit,
-            out.data_ptr(), olens.data_ptr(),
-            torch.cuda.current_stream(blocks.device).cuda_stream,
-        )
-    kernels.check(rc, "encode_blocks launch")
-    launches += 1
-    return out, olens
+    res = launch(blocks, blens, min_profit)
+    if blocks.shape[0]:
+        launches += 1
+    return res

@@ -71,7 +71,7 @@ def _on_card(t: torch.Tensor, cycles: torch.Tensor | None) -> bool:
 
 def _launch(kernel: str, entry: str, device, cycles, *args) -> None:
     with torch.cuda.device(device):
-        rc = getattr(kernels.load(), entry)(
+        rc = getattr(kernels.load("exp_vector_walk"), entry)(
             *args, cycles.data_ptr() if cycles is not None else None, torch.cuda.current_stream(device).cuda_stream
         )
     kernels.check(rc, f"{entry} launch")

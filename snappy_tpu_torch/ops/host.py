@@ -10,8 +10,9 @@ header.
 ``uncompress`` is the counterpart of ``snappy_tpu/ops/host.py:40-133``. The
 host parses the varint header, the native ``scan_blocks`` cuts the tag
 stream into segments of at most 128 KiB of output at tag boundaries, and
-the block decoder runs all segments in one batched launch. A stream that ``scan_blocks`` declines
-goes to the same decoder as one headerless block. On a CUDA device that is
+the block decoder runs all segments in one batched launch. A stream that ``scan_blocks`` declines,
+or any stream where the native library cannot load, goes to the same
+decoder as one headerless block. On a CUDA device that is
 the kernel, which has no size limit; on the CPU it is the plain version,
 whose memory grows with the stream, so above ``decode_torch.RAW_WHOLE_LIMIT``
 compressed bytes such a stream goes to ``decode_torch.decode_raw_windowed``
@@ -94,7 +95,9 @@ def uncompress(data, device="cuda") -> bytes:
     comp = as_u8(data)
     ulen, start = varint.parse32(comp, 0)
     body = comp[start:]
-    scan = nat.scan_blocks(body, ulen)  # raises CorruptInputError
+    # Without the native library nothing segments the stream, as in the
+    # reference (snappy_tpu/ops/host.py:84-85).
+    scan = nat.scan_blocks(body, ulen) if nat.available() else None  # raises CorruptInputError
     if scan is None:
         # The scan stopped early, so the header is not yet checked against
         # the body: no tag yields more than 64 bytes from 3 (COPY_2).

@@ -2,10 +2,12 @@
 
 Each ``.cu`` file exposes a plain C entry point that takes its pointers and
 the stream as ``void*`` and returns the launch's ``cudaError_t``. Each file
-is built into a library of its own, all of them by concurrent nvcc
-processes, at first use into the package's build directory, keyed by the
-source and flags, so an edited kernel rebuilds and nothing else does.
-Nothing is built or imported when this module is imported.
+is built into a library of its own, at first use into the package's build
+directory, keyed by the source and flags, so an edited kernel rebuilds and
+nothing else does. ``load(*stems)`` builds and loads only the sources it is
+asked for (those not loaded yet by concurrent nvcc processes), so a wrapper
+never waits for, or fails on, another kernel's source. Nothing is built or
+imported when this module is imported.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import ctypes
 import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 from ..native.build import build_shared
 
@@ -29,7 +33,6 @@ _DECODE_ARGS = [_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR, _PTR, _PTR, _PTR]
 ENTRIES = {
     "decode_blocks": {
         "snappy_cuda_decode_blocks": (_INT, _DECODE_ARGS),
-        "snappy_cuda_error_string": (ctypes.c_char_p, [_INT]),
     },
     "encode_blocks": {
         "snappy_cuda_encode_blocks": (_INT, [_PTR, _PTR, _I64, _I64, _I64, _INT, _PTR, _PTR, _PTR]),
@@ -48,7 +51,9 @@ ENTRIES = {
     },
 }
 
-_lib = None
+# stem -> its loaded library; (stems) -> the namespace load() gave for them
+_libraries: dict[str, ctypes.CDLL] = {}
+_namespaces: dict[tuple[str, ...], types.SimpleNamespace] = {}
 
 
 def nvcc_path() -> Path:
@@ -63,31 +68,41 @@ def nvcc_path() -> Path:
     return nvcc
 
 
-def load():
-    """Every kernel's entry points as attributes of one namespace, building
-    the libraries if needed (all sources at once). Raises if a build fails."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    compiler = [str(nvcc_path()), *NVCC_FLAGS]
-    with ThreadPoolExecutor(len(ENTRIES)) as pool:
-        paths = dict(zip(ENTRIES, pool.map(
-            lambda stem: build_shared(compiler, [CSRC / f"{stem}.cu"], f"snappy_cuda_{stem}"), ENTRIES
-        )))
-    lib = types.SimpleNamespace(libraries={})
-    for stem, entries in ENTRIES.items():
-        cdll = ctypes.CDLL(str(paths[stem]))
-        lib.libraries[stem] = cdll
-        for name, (restype, argtypes) in entries.items():
-            fn = getattr(cdll, name)
-            fn.restype, fn.argtypes = restype, argtypes
-            setattr(lib, name, fn)
-    _lib = lib
-    return lib
+def load(*stems: str) -> types.SimpleNamespace:
+    """The entry points of the sources ``stems`` as attributes of one
+    namespace, with the libraries by stem in ``libraries``. Builds the
+    sources not loaded yet, one nvcc each, all at once. Raises if a build
+    fails or a stem is unknown."""
+    ns = _namespaces.get(stems)
+    if ns is not None:
+        return ns
+    unknown = [s for s in stems if s not in ENTRIES]
+    if unknown:
+        raise ValueError(f"no kernel source {unknown}; known: {list(ENTRIES)}")
+    missing = [s for s in dict.fromkeys(stems) if s not in _libraries]
+    if missing:
+        compiler = [str(nvcc_path()), *NVCC_FLAGS]
+        with ThreadPoolExecutor(len(missing)) as pool:
+            paths = list(pool.map(
+                lambda stem: build_shared(compiler, [CSRC / f"{stem}.cu"], f"snappy_cuda_{stem}"), missing
+            ))
+        for stem, path in zip(missing, paths):
+            cdll = ctypes.CDLL(str(path))
+            for name, (restype, argtypes) in ENTRIES[stem].items():
+                fn = getattr(cdll, name)
+                fn.restype, fn.argtypes = restype, argtypes
+            _libraries[stem] = cdll
+    ns = types.SimpleNamespace(libraries={s: _libraries[s] for s in stems})
+    for stem in stems:
+        for name in ENTRIES[stem]:
+            setattr(ns, name, getattr(_libraries[stem], name))
+    _namespaces[stems] = ns
+    return ns
 
 
 def check(rc: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error."""
+    """Raise if a launch returned a CUDA error, named by the CUDA runtime
+    that torch links, so that no kernel source is needed for the message."""
     if rc != 0:
-        msg = load().snappy_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+        cudart = torch.cuda.cudart()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({cudart.cudaGetErrorString(cudart.cudaError(rc))})")

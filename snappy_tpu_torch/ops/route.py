@@ -66,7 +66,10 @@ def dup_ratios(buf: np.ndarray, blens: np.ndarray, n_blocks: int) -> np.ndarray:
 
 
 def host_blocks(buf: np.ndarray, blens: np.ndarray) -> np.ndarray:
-    """Indices of the blocks of the batch to compress on the host."""
+    """Indices of the blocks of the batch to compress on the host: none
+    where the native encoder cannot load, as in the reference."""
+    if not nat.available():
+        return np.zeros(0, np.int64)
     return np.flatnonzero(dup_ratios(buf, blens, len(blens)) < DUP_THRESHOLD)
 
 

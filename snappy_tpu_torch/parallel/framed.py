@@ -161,13 +161,16 @@ def raw_to_frame(raw: bytes, config: FrameConfig = DEFAULT_FRAME_CONFIG, device=
     Where the native segmenter cuts the stream into segments of exactly
     ``block_size`` output bytes (the streams of every block-based encoder),
     the frame reuses the segment bytes as they are, and the stream is
-    decoded on the host only for the crcs. Any other stream is decoded on
-    the host and compressed again with ``compress_framed`` on ``device``.
+    decoded on the host only for the crcs. Any other stream, and every
+    stream where the native library cannot load, is decoded on the host
+    (``api.uncompress``) and compressed again with ``compress_framed`` on
+    ``device``.
     """
     comp = np.frombuffer(raw, np.uint8)
     ulen, start = varint.parse32(comp, 0)
     bs = config.block_size
-    seg = nat.scan_blocks(comp[start:], ulen) if bs == 1 << 16 and ulen else None
+    segment = bs == 1 << 16 and ulen and nat.available()
+    seg = nat.scan_blocks(comp[start:], ulen) if segment else None
     if seg is not None and len(seg[0]) and (seg[1][:-1] == bs).all() and seg[1][-1] <= bs:
         bounds = [*seg[0].tolist(), len(comp) - start]
         body = raw[start:]
@@ -177,6 +180,7 @@ def raw_to_frame(raw: bytes, config: FrameConfig = DEFAULT_FRAME_CONFIG, device=
             out = nat.uncompress(raw)
             raws = [out[i : i + bs] for i in range(0, len(out), bs)]
         return build_frame(streams, raws, ulen, config)
+    from ..api import uncompress
     from .host import compress_framed  # host builds on this module
 
-    return compress_framed(nat.uncompress(raw), config, device)
+    return compress_framed(uncompress(raw), config, device)

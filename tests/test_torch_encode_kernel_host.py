@@ -6,9 +6,9 @@ device code of ``snappy_tpu_torch/csrc/encode_blocks.cu`` (everything before
 its ``extern "C"`` launcher) is compiled unchanged but for two textual
 substitutions, with one ``std::thread`` per thread of a block of 64 (the
 kernel's thread count is a macro; the card runs 1024), a ``std::barrier``
-for ``__syncthreads`` and one per warp for ``__syncwarp``, warp votes
-(``__ballot_sync``, ``__match_any_sync``) through a per-warp exchange
-array, and a static buffer for its shared memory.
+for ``__syncthreads`` and one per warp for ``__syncwarp``, the warp vote
+``__match_any_sync`` and the shuffles through a per-warp exchange array,
+and a static buffer for its shared memory.
 
 Tolerance: exact. ``out`` and ``olens`` must be identical on every row.
 Rows whose ``blen`` does not fit the batch (which the wrapper reads only
@@ -27,7 +27,10 @@ from snappy_tpu_torch.ops import encode_torch
 from snappy_tpu_torch.ops.encode_torch import BLOCK_MAX_OUT, ENC_PAD
 from snappy_tpu_torch.ops.kernels import CSRC
 
+from snappy_tpu_torch.tools.profile_encode import HASH_BITS, HASH_MUL, chase_rows, collision_block, record_chunk
+
 from conftest import read_testdata
+from torch_helpers import plain_takes
 
 GUARD = 64  # canary bytes on each side of the output rows
 
@@ -44,6 +47,7 @@ _PRELUDE = r"""
 #define __launch_bounds__(x)
 #define __restrict__ __restrict
 struct alignas(8) uint2 { uint32_t x, y; };
+struct alignas(16) uint4 { uint32_t x, y, z, w; };
 struct Idx { int64_t x; };
 thread_local Idx threadIdx, blockIdx;
 constexpr int kEmuWarps = SNAPPY_ENC_THREADS / 32;
@@ -64,14 +68,35 @@ static inline uint32_t emu_vote(uint32_t v, F pick) {
   for (int i = 0; i < 32; ++i) m |= pick(g_xchg[w][i]) ? (1u << i) : 0u;
   return m;
 }
-static inline uint32_t __ballot_sync(unsigned, int pred) {
-  return emu_vote(pred != 0, [](uint32_t x) { return x != 0; });
-}
 static inline uint32_t __match_any_sync(unsigned, uint32_t v) {
   return emu_vote(v, [v](uint32_t x) { return x == v; });
 }
+static inline uint32_t __shfl_xor_sync(unsigned, uint32_t v, int mask) {
+  const int64_t w = threadIdx.x / 32, l = threadIdx.x % 32;
+  __syncwarp();
+  g_xchg[w][l] = v;
+  __syncwarp();
+  return g_xchg[w][l ^ mask];
+}
+static inline uint32_t __shfl_up_sync(unsigned, uint32_t v, int delta) {
+  const int64_t w = threadIdx.x / 32, l = threadIdx.x % 32;
+  __syncwarp();
+  g_xchg[w][l] = v;
+  __syncwarp();
+  return l >= delta ? g_xchg[w][l - delta] : v;
+}
+static inline uint32_t __shfl_sync(unsigned, uint32_t v, int src) {
+  const int64_t w = threadIdx.x / 32, l = threadIdx.x % 32;
+  __syncwarp();
+  g_xchg[w][l] = v;
+  __syncwarp();
+  return g_xchg[w][src];
+}
 static inline int __clz(int x) { return x ? __builtin_clz(unsigned(x)) : 32; }
 static inline int __ffs(int x) { return __builtin_ffs(x); }
+static inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, uint32_t s) {
+  return uint32_t(((uint64_t(hi) << 32) | lo) >> (s & 31));
+}
 alignas(16) static uint8_t g_smem[1 << 18];
 """
 
@@ -104,6 +129,11 @@ extern "C" int emu_encode_blocks(const uint8_t* blocks, const int32_t* blens, in
   for (auto& t : threads) t.join();
   return 0;
 }
+
+// The chase's extension of a match capped at kMCap bytes, on its own.
+extern "C" uint32_t emu_extend(const uint8_t* row, uint32_t a, uint32_t b, uint32_t limit) {
+  return extend(row, a, b, limit);
+}
 """
 
 # (text in the kernel source, its host replacement)
@@ -113,8 +143,8 @@ _SUBSTITUTIONS = [
 ]
 
 
-def _emulation_source() -> str:
-    src = (CSRC / "encode_blocks.cu").read_text()
+def _emulation_source(src: str | None = None) -> str:
+    src = (CSRC / "encode_blocks.cu").read_text() if src is None else src
     src = src[: src.index('extern "C" {')]
     for old, new in _SUBSTITUTIONS:
         assert src.count(old) == 1, f"kernel source no longer holds {old!r}"
@@ -122,13 +152,13 @@ def _emulation_source() -> str:
     return _PRELUDE + src + _HARNESS
 
 
-@pytest.fixture(scope="module")
-def emu(tmp_path_factory):
-    d = tmp_path_factory.mktemp("encode_blocks_host")
+def build_emulation(d, source: str):
+    """Compile ``source`` (the emulation's C++) in directory ``d``; returns
+    ``run(blocks, blens, min_profit) -> (out, olens)`` and the library."""
     cpp, so = d / "encode_blocks_host.cpp", d / "encode_blocks_host.so"
-    cpp.write_text(_emulation_source())
+    cpp.write_text(source)
     proc = subprocess.run(
-        ["g++", "-std=c++20", "-O2", "-pthread", "-fPIC", "-shared", "-Wall", str(cpp), "-o", str(so)],
+        ["g++", "-std=c++20", "-O2", "-fno-strict-aliasing", "-pthread", "-fPIC", "-shared", "-Wall", str(cpp), "-o", str(so)],
         capture_output=True, text=True,
     )
     assert proc.returncode == 0, proc.stderr
@@ -149,7 +179,17 @@ def emu(tmp_path_factory):
         assert (buf[:GUARD] == 0xAB).all() and (buf[-GUARD:] == 0xAB).all(), "wrote outside the rows"
         return buf[GUARD:-GUARD].reshape(rows, BLOCK_MAX_OUT), olens
 
-    return run
+    return run, lib
+
+
+@pytest.fixture(scope="module")
+def emu_lib(tmp_path_factory):
+    return build_emulation(tmp_path_factory.mktemp("encode_blocks_host"), _emulation_source())
+
+
+@pytest.fixture(scope="module")
+def emu(emu_lib):
+    return emu_lib[0]
 
 
 def _rows():
@@ -224,3 +264,59 @@ def test_kernel_refuses_lengths_outside_the_batch(emu):
     for r in (0, 4):
         assert olens[r] == good_lens[0]
         np.testing.assert_array_equal(out[r], good[0])
+
+
+CHUNK = record_chunk()
+CHASE_ROWS = chase_rows()
+# What each row must do in the plain parse at min_profit 2, where it says.
+EXPECT = {
+    "text-more-takes-than-a-chunk": lambda t: len(t) > 2 * CHUNK,
+    "html-64k": lambda t: len(t) > CHUNK,
+    **{f"match-{n}-{far}": (lambda t, n=n: n in {m for _, m in t}) for n in (7, 8, 9) for far in ("near", "far")},
+    "rle-64k": lambda t: t == [(1, 65535)],
+    "zeros-64k": lambda t: t == [(1, 65535)],
+    "period-3-64k": lambda t: t == [(3, 65533)],
+    "match-cut-at-the-row-end": lambda t: t == [(40, 30)],
+    "literals-across-chunks": lambda t: len(t) > 2 * CHUNK,
+    "1-chunks-exactly-full": lambda t: len(t) == CHUNK,
+    "2-chunks-exactly-full": lambda t: len(t) == 2 * CHUNK,
+    "collision-16k": lambda t: t == [],
+}
+
+
+@pytest.mark.parametrize("min_profit", [0, 1, 2, 3])
+@pytest.mark.parametrize("name", list(CHASE_ROWS))
+def test_chase_rows_match_plain_version(emu, name, min_profit):
+    row = CHASE_ROWS[name]
+    if min_profit == 2:
+        assert EXPECT[name](plain_takes(row, 2)), f"{name}: the row does not exercise what it is for"
+    blocks, blens = _batch([row], 65536 + ENC_PAD)
+    out, olens = emu(blocks, blens, min_profit)
+    p_out, p_olens = _plain(blocks, blens, min_profit)
+    np.testing.assert_array_equal(olens, p_olens)
+    np.testing.assert_array_equal(out, p_out)
+
+
+@pytest.mark.parametrize("limit", [9, 20, 47, 48, 49, 1000])
+def test_extend_counts_on_from_the_capped_length(emu_lib, limit):
+    """The chase extends only a match that the candidate pass found equal
+    for its first 8 bytes, and takes them as given: the count starts at 8
+    whatever those bytes hold, and stops at the first byte that differs
+    or at limit."""
+    lib = emu_lib[1]
+    lib.emu_extend.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32]
+    lib.emu_extend.restype = ctypes.c_uint32
+    row = np.random.default_rng(5).integers(0, 256, 4096 + 16, dtype=np.uint8)
+    a, b = 3001, 101
+    row[a + 8 : a + 48] = row[b + 8 : b + 48]
+    row[a + 48] = row[b + 48] ^ 0xFF
+    row[a] = row[b] ^ 0xFF
+    assert lib.emu_extend(row.ctypes.data, a, b, limit) == min(48, limit)
+
+
+def test_collision_block_keys_are_distinct_and_share_a_hash():
+    row = np.frombuffer(collision_block(65536), np.uint8)
+    keys = row.view("<u4").astype(np.uint64)
+    assert len(np.unique(keys)) == len(keys) == 16384 and not (keys == 0xFFFFFFFF).any()
+    hashes = ((keys * HASH_MUL) & 0xFFFFFFFF) >> (32 - HASH_BITS)
+    assert len(np.unique(hashes)) == 1

@@ -187,3 +187,27 @@ def odd_width_batch(cases):
     clens = np.array([len(b) for b, _ in cases], np.int32)
     ulens = np.array([u for _, u in cases], np.int32)
     return comp, clens, ulens
+
+
+def plain_takes(row: bytes, min_profit: int) -> list[tuple[int, int]]:
+    """The takes (position, match length) that the block encoder's parse
+    makes in ``row``, from the plain version's candidates and its walk."""
+    import torch
+
+    from snappy_tpu_torch.ops import encode_torch
+
+    n = len(row)
+    block = np.zeros((1, n + encode_torch.ENC_PAD), np.uint8)
+    block[0, :n] = np.frombuffer(row, np.uint8)
+    d, m = encode_torch.candidate_takes(torch.from_numpy(block), torch.tensor([n]), min_profit)
+    d, m = d[0].numpy(), m[0].numpy()
+    takes, anchor = [], 0
+    for ip in np.flatnonzero(d[: max(n - 3, 0)]).tolist():
+        if ip < anchor:
+            continue
+        limit = n - ip
+        k = int(m[ip])
+        k = encode_torch._match_length(row, ip, ip - int(d[ip]), encode_torch.M_CAP, limit) if k >= encode_torch.M_CAP else min(k, limit)
+        takes.append((ip, k))
+        anchor = ip + k
+    return takes
