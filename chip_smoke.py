@@ -14,10 +14,16 @@ non-zero:
               batch on the card: 128 corpus blocks of 64 KiB, the corrupt
               battery, RLE blocks, wrong claimed lengths, a trailing byte,
               128 corpus blocks damaged at random (fixed seed); then rows
-              whose lengths do not fit the batch, which the kernel refuses
+              whose lengths do not fit the batch, which the kernel refuses;
+              then, at 128 KiB of output, the rows of
+              tools/profile_decode.window_rows at the edges of the kernel's
+              output window and compressed ring (copies from around the
+              window's reach across flushes, overlapping copies, literals
+              around the ring's size, a 128 KiB segment, text across flushes)
   4. slice    a 64 MiB corpus-mix frame (1024 blocks, crc on) through
               uncompress_framed(frame, device="cuda"): the main path; the
-              kernel's launch count is reset just before and read just after
+              kernel's launch count is reset just before and read just after;
+              the kernel's shared memory a block and blocks an SM
   5. raw      alice29.snappy, a 64 MiB native raw stream and an unsegmentable
               stream through uncompress(backend="torch", device="cuda");
               baddata{1,2,3}.snappy must raise CorruptInputError
@@ -198,7 +204,7 @@ def main() -> int:
     from snappy_tpu_torch.ops.host import blockify, pack_rows
     from snappy_tpu_torch.parallel import framed
     from snappy_tpu_torch.parallel import host as fhost
-    from snappy_tpu_torch.tools import exp_vector_walk, profile_encode
+    from snappy_tpu_torch.tools import exp_vector_walk, profile_decode, profile_encode
     from snappy_tpu_torch.utils.metrics import Metrics, time_device_fn
 
     def device_ms(fn, args, iters: int, warmup: int = 1) -> float:
@@ -292,10 +298,27 @@ def main() -> int:
     g_out, g_ok, _ = cuda_decode.decode_blocks(comp[:5], g_clens, g_ulens, BLOCK)
     check(g_ok.tolist() == [False] * 4 + [True] and not bool(g_out[:4].any())
           and torch.equal(g_out[4], k_out[4]), "the kernel did not refuse lengths outside the batch")
+    n_ok3 = int(k_ok.sum())
+    # The rows at the edges of the kernel's window and ring, at 128 KiB.
+    wrows = profile_decode.window_rows()
+    w_bodies = [body for body, _ in wrows.values()]
+    w_comp = pack_rows(np.frombuffer(b"".join(w_bodies), np.uint8),
+                       np.cumsum([0] + [len(b) for b in w_bodies[:-1]]), np.array([len(b) for b in w_bodies]))
+    w_args = (torch.from_numpy(w_comp).to(dev), torch.tensor([len(b) for b in w_bodies], dtype=torch.int32, device=dev),
+              torch.tensor([len(raw) for _, raw in wrows.values()], dtype=torch.int32, device=dev), 2 * BLOCK)
+    k_out, k_ok, k_total = cuda_decode.decode_blocks(*w_args)
+    p_out, p_ok, p_total = decode_torch.decode_blocks(*w_args)
+    err3 = max(err3, max_err(k_out, p_out))
+    check(bool(k_ok.all()) and torch.equal(k_ok, p_ok) and err3 == 0 and torch.equal(k_out, p_out)
+          and torch.equal(k_total, p_total), "kernel and plain version disagree on the window rows")
+    for i, (wname, (_, raw)) in enumerate(wrows.items()):
+        check(k_out[i, : len(raw)].cpu().numpy().tobytes() == raw, f"window row {wname}: wrong bytes")
     print(f"[3 kernel] {len(cases)} rows (128 corpus blocks + corrupt battery + RLE + wrong lengths "
           f"+ trailing byte + cut copy + 128 damaged blocks): out, ok identical to the plain version, total identical "
-          f"where ok; {int(k_ok.sum())} rows ok; max |kernel - plain| = {err3}; 4 rows with lengths "
-          f"outside the batch refused", flush=True)
+          f"where ok; {n_ok3} rows ok; max |kernel - plain| = {err3}; 4 rows with lengths "
+          f"outside the batch refused; {len(wrows)} rows at the edges of the {profile_decode.window_bytes()}-byte "
+          f"window and {profile_decode.ring_bytes()}-byte ring at 128 KiB ({', '.join(wrows)}): identical to the "
+          f"plain version and to their bytes", flush=True)
 
     # 4. the slice at full size: a 64 MiB frame through the main path
     raws = [raw_main[i * BLOCK : (i + 1) * BLOCK] for i in range(len(streams))]
@@ -327,9 +350,12 @@ def main() -> int:
     check(err4 == 0 and torch.equal(k_ok, p_ok) and bool(k_ok.all()), "kernel and plain differ at full size")
     del p_out, p_ok
     gb = len(raw_main) / 1e9
+    smem, per_sm = cuda_decode.occupancy()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"[4 slice] 64 MiB frame, {idx.n_blocks} blocks, C={b_comp.shape[1]}, "
           f"compressed {len(frame)} bytes: byte-identical; kernel launches {main_launches}; "
-          f"first call {t_first:.4f} s", flush=True)
+          f"first call {t_first:.4f} s; the kernel takes {smem} bytes of shared memory a block, {per_sm} blocks "
+          f"an SM, {per_sm * sms} at once on {sms} SMs: {-(-idx.n_blocks // (per_sm * sms))} wave(s)", flush=True)
     print(f"[4 slice] on {card}: decode launch {kernel_ms:.4f} ms ({gb / kernel_ms * 1e3:.3f} GB/s), "
           f"plain version {plain_ms:.4f} ms ({gb / plain_ms * 1e3:.3f} GB/s), whole call "
           f"min {min(calls):.4f} s ({gb / min(calls):.3f} GB/s) of {[round(c, 4) for c in calls]}",
@@ -344,8 +370,8 @@ def main() -> int:
     got = snappy_tpu_torch.uncompress(raw_stream, backend="torch", device="cuda")
     t_raw = time.perf_counter() - t0
     check(got == raw_main, "64 MiB native raw stream decoded wrong")
-    # One 300 KiB literal: scan_blocks declines it, and the row is wider
-    # than shared memory, so the kernel reads it from device memory.
+    # One 300 KiB literal: scan_blocks declines it, so the stream is one row
+    # of 300 KiB, which the kernel's ring and window take like any other.
     big = np.random.default_rng(7).integers(0, 256, 300_000, dtype=np.uint8).tobytes()
     header = varint.encode32(len(big))
     stream = header + bytes([62 << 2]) + (len(big) - 1).to_bytes(3, "little") + big

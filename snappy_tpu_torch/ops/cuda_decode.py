@@ -12,9 +12,20 @@ row with ``ulens`` outside [0, out_size] or ``clens`` outside [0, C - COMP_PAD]
 comes back not ok, all zero. A CPU tensor with such a row raises; otherwise
 it goes to the plain version, ``decode_torch.decode_blocks``. No other
 device is taken.
+
+The kernel runs one warp a row and walks it 32 tags at a time (a chase of
+their positions, then each lane reads one tag, then the moves in order):
+the compressed row passes through a ring in shared memory and the output
+through a window of its last bytes there, flushed to the row with 16-byte
+stores, so its shared memory does not
+depend on the row's width and one launch takes rows of any width
+(``occupancy`` gives its size and the blocks an SM holds). The design and
+what bounds it are in the source's header.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -82,3 +93,12 @@ def decode_blocks(comp: torch.Tensor, clens: torch.Tensor, ulens: torch.Tensor, 
     if comp.shape[0]:
         launches += 1
     return res
+
+
+def occupancy() -> tuple[int, int]:
+    """(bytes of shared memory a block of the kernel takes, blocks of it one
+    SM of the current card holds at once). Needs a CUDA card."""
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    rc = kernels.load("decode_blocks").snappy_cuda_decode_blocks_occupancy(ctypes.byref(smem), ctypes.byref(blocks))
+    kernels.check(rc, "decode_blocks occupancy")
+    return smem.value, blocks.value

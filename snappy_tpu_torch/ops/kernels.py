@@ -33,6 +33,7 @@ _DECODE_ARGS = [_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR, _PTR, _PTR, _PTR]
 ENTRIES = {
     "decode_blocks": {
         "snappy_cuda_decode_blocks": (_INT, _DECODE_ARGS),
+        "snappy_cuda_decode_blocks_occupancy": (_INT, [_PTR, _PTR]),
     },
     "encode_blocks": {
         "snappy_cuda_encode_blocks": (_INT, [_PTR, _PTR, _I64, _I64, _I64, _INT, _PTR, _PTR, _PTR]),
