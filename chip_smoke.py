@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive snappy_tpu_torch's read and write paths, the decode A/B and the probes once on one CUDA GPU (Hopper, sm_90).
+"""Drive snappy_tpu_torch's read and write paths, the decode A/B, the probes and the streaming pipeline once on one CUDA GPU (Hopper, sm_90).
 
     python3 chip_smoke.py
 
@@ -73,10 +73,30 @@ non-zero:
               tools/exp_vector_walk.run times each at the script's two
               knobs: ns and cycles a step by the slope, one line a variant
               and a {"probes": [...]} line
+ 13. stream   the reference's large config (bench.py's stream_large stage):
+              676,000,000 bytes of the corpus mix through compress_stream and
+              uncompress_stream on io.BytesIO, 128 blocks a frame, on the
+              default device, after one warm-up frame; the launch counts are
+              reset just before each and read just after: the encoder once
+              per frame with a block left on the card, the decoder once per
+              frame. Gates: the round trip is bit-exact, the frame count, the
+              first, a middle and the last (short) frame equal to
+              compress_framed of their chunk, no retry. Then
+              tools/profile_stream.profile: the pipeline and the same frames
+              coded one at a time through compress_framed and
+              uncompress_framed, in turns, with the host's time by stage (a
+              line a run; GB/s of each, a {"stream": [...]} line of
+              bench.py's stage record); then, on
+              files in a temporary directory at 64 MiB, compress_file cut at
+              25/60/97% (and one with junk after it) and resume_compress_file
+              back to the same bytes, an output cut and resume_uncompress_file,
+              and one `python -m snappy_tpu_torch decompress` subprocess with no
+              --device
 
 Before the last line it prints the card's `nvidia-smi` name and power limit
 and one JSON line {"kernels": [...]} with each kernel's launches on its main
-path, its largest difference from the plain version, its time beside the
+path, its launches on phase 13's stream path (K1 and K2: "stream_launches"),
+its largest difference from the plain version, its time beside the
 plain version's at the main path's shape, and its bound: the larger of the
 bytes it must move (inputs read once, outputs written once, as this run's
 data needs them) over the H100's 3.35 TB/s and its operations (one integer
@@ -94,10 +114,12 @@ nothing of snappy_tpu.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -106,6 +128,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 BLOCK = 1 << 16
 ANY = object()  # a case whose result only has to agree between kernel and plain version
 MAIN_BYTES = 64 << 20
+# The reference's large config, bench.py's stream_large stage at its full
+# size (BENCH_STREAM_BYTES), in frames of bench.py's BATCH blocks.
+STREAM_BYTES = 676_000_000
+STREAM_BLOCKS_PER_FRAME = 128
 # The H100 SXM's device memory rate, and its float32 rate outside the tensor
 # cores, taken for the codec's integer operations (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -183,6 +209,125 @@ def raises(exc, fn) -> bool:
     except exc:
         return True
     return False
+
+
+def stream_phase(card: str, name: str, raw_main: bytes) -> dict[str, int]:
+    """Phase 13: the streaming pipeline at the reference's large config, on
+    the default device, then resume on files. Returns the stream path's
+    launches of the decoder and the encoder."""
+    import snappy_tpu_torch
+    from snappy_tpu_torch.ops import cuda_decode, cuda_encode, route
+    from snappy_tpu_torch.ops.host import blockify
+    from snappy_tpu_torch.parallel import streaming
+    from snappy_tpu_torch.tools import profile_stream
+    from snappy_tpu_torch.utils.metrics import Metrics
+
+    bpf = STREAM_BLOCKS_PER_FRAME
+    chunk = bpf * BLOCK
+    raw = corpus_stream(STREAM_BYTES)
+    chunks = [raw[i : i + chunk] for i in range(0, len(raw), chunk)]
+    n_frames = len(chunks)
+    check(len(chunks[-1]) < chunk, "the large config's last frame is not short")
+    on_card = 0  # frames with a block that routing leaves on the card
+    for c in chunks:
+        buf, blens = blockify(np.frombuffer(c, np.uint8), BLOCK)
+        on_card += len(route.host_blocks(buf, blens)) < len(blens)
+
+    # One warm-up frame through both directions, as bench.py does.
+    warm = io.BytesIO()
+    streaming.compress_stream(io.BytesIO(chunks[0]), warm, blocks_per_frame=bpf)
+    warm.seek(0)
+    streaming.uncompress_stream(warm, io.BytesIO())
+
+    cuda_encode.launches = cuda_decode.launches = 0
+    dst = io.BytesIO()
+    streaming.compress_stream(io.BytesIO(raw), dst, blocks_per_frame=bpf)
+    enc_launches, dec_during_enc = cuda_encode.launches, cuda_decode.launches
+    comp = dst.getvalue()
+    cuda_decode.launches = cuda_encode.launches = 0
+    dst = io.BytesIO()
+    streaming.uncompress_stream(io.BytesIO(comp), dst)
+    dec_launches, enc_during_dec = cuda_decode.launches, cuda_encode.launches
+    stats = dict(streaming.last_stats)
+    check(dst.getvalue() == raw, "the stream round trip is not bit-exact")
+    del dst
+    frames = list(streaming.iter_frames(io.BytesIO(comp)))
+    check(len(frames) == n_frames and stats["frames"] == n_frames,
+          f"{len(frames)} frames written, {stats['frames']} decoded, {n_frames} expected")
+    check(stats["retries"] == 0, f"the stream decode retried: {stats}")
+    check(dec_launches == n_frames and dec_during_enc == 0,
+          f"decoder launches {dec_launches} for {n_frames} frames ({dec_during_enc} during the encode)")
+    check(enc_launches == on_card and enc_during_dec == 0,
+          f"encoder launches {enc_launches} for {on_card} frames with a block on the card "
+          f"({enc_during_dec} during the decode)")
+    for i in (0, n_frames // 2, n_frames - 1):
+        check(frames[i] == snappy_tpu_torch.compress_framed(chunks[i]), f"frame {i} differs from compress_framed")
+    print(f"[13 stream] {len(raw)} bytes of the corpus mix, {bpf} blocks a frame: {n_frames} frames "
+          f"(the last {len(chunks[-1])} bytes), {len(comp)} bytes; round trip bit-exact; frames 0, "
+          f"{n_frames // 2} and {n_frames - 1} equal compress_framed of their chunk; retries 0; decoder "
+          f"launches {dec_launches} (one a frame), encoder launches {enc_launches} (the {on_card} frames "
+          f"with a block on the card)", flush=True)
+    del frames, chunks
+
+    # The timed turns: the pipeline and the same frames one at a time
+    # (compress_framed, uncompress_framed), with the host's time by stage.
+    rows = profile_stream.profile(raw, bpf, "cuda")
+    for r in rows:
+        print(f"[13 stream] {profile_stream.line(r)}", flush=True)
+    best = {}
+    for r in rows:
+        key = r["direction"] + ("" if r["mode"] == "pipelined" else "_serial")
+        best[key] = max(best.get(key, 0.0), r["gbps"])
+    record = Metrics(run={"device": name, "card": card})
+    record.add(stage="stream_large", bytes=len(raw), ratio=len(comp) / len(raw),
+               compress_gbps=best["compress"], uncompress_gbps=best["uncompress"],
+               compress_serial_gbps=best["compress_serial"], uncompress_serial_gbps=best["uncompress_serial"],
+               blocks_per_frame=bpf, frames=n_frames, retries=stats["retries"])
+    print(f"[13 stream] on {card}: ratio {len(comp) / len(raw):.4f}; pipelined compress_gbps "
+          f"{best['compress']:.4f}, uncompress_gbps {best['uncompress']:.4f}; one frame at a time "
+          f"compress_framed {best['compress_serial']:.4f}, uncompress_framed {best['uncompress_serial']:.4f} "
+          f"GB/s (best of 2 turns each)", flush=True)
+    print(json.dumps({"stream": record.results}), flush=True)
+    del comp
+
+    # Resume on files: a kill during compress, one during decompress, and the CLI.
+    raw_f = raw_main[: len(raw_main) - 12345]  # the last frame short
+    with tempfile.TemporaryDirectory() as tmp:
+        src, full_path = os.path.join(tmp, "in.bin"), os.path.join(tmp, "full.snpf")
+        with open(src, "wb") as f:
+            f.write(raw_f)
+        streaming.compress_file(src, full_path)
+        with open(full_path, "rb") as f:
+            full = f.read()
+        cut_path = os.path.join(tmp, "cut.snpf")
+        for label, torn in (("25%", full[: len(full) // 4]), ("60%", full[: len(full) * 6 // 10]),
+                            ("97%", full[: len(full) * 97 // 100]), ("junk", full + b"\x99" * 7)):
+            with open(cut_path, "wb") as f:
+                f.write(torn)
+            size = streaming.resume_compress_file(src, cut_path)
+            with open(cut_path, "rb") as f:
+                check(size == len(full) and f.read() == full, f"resume_compress_file after a cut at {label}")
+        out_path = os.path.join(tmp, "out.bin")
+        for cut in (0, 3 * BLOCK + 5, len(raw_f) - 3):
+            with open(out_path, "wb") as f:
+                f.write(raw_f[:cut])
+            n = streaming.resume_uncompress_file(full_path, out_path)
+            with open(out_path, "rb") as f:
+                check(n == len(raw_f) and f.read() == raw_f, f"resume_uncompress_file after a cut at {cut}")
+        cli_path = os.path.join(tmp, "cli.bin")
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "snappy_tpu_torch", "decompress", full_path, cli_path],
+                             cwd=REPO, capture_output=True, text=True, timeout=300)
+        t_cli = time.perf_counter() - t0
+        check(run.returncode == 0, f"python -m snappy_tpu_torch decompress failed: {run.stderr[-2000:]}")
+        with open(cli_path, "rb") as f:
+            check(f.read() == raw_f, "python -m snappy_tpu_torch decompress gave other bytes")
+    print(f"[13 stream] files of {len(raw_f)} bytes, {len(full)} compressed in "
+          f"{-(-len(raw_f) // (streaming.DEFAULT_BLOCKS_PER_FRAME * BLOCK))} frames: resume_compress_file after "
+          f"cuts at 25/60/97% and after junk gives the same bytes; resume_uncompress_file after 3 cuts; "
+          f"`python -m snappy_tpu_torch decompress` (no --device) equal to the input in {t_cli:.1f} s "
+          f"with the process start", flush=True)
+    return {"decode_blocks": dec_launches, "encode_blocks": enc_launches}
 
 
 def main() -> int:
@@ -680,6 +825,11 @@ def main() -> int:
             "ms_at_plain_knob": g["kernel_ms"],
         })
 
+    # 13. the streaming pipeline at the reference's large config
+    t0 = time.perf_counter()
+    stream_launches = stream_phase(card, name, raw_main)
+    print(f"[13 stream] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "decode_blocks",
@@ -687,6 +837,7 @@ def main() -> int:
         "source": "snappy_tpu_torch/csrc/decode_blocks.cu",
         "replaces": "snappy_tpu/ops/pallas_decode.py:297",
         "launches": main_launches,
+        "stream_launches": stream_launches["decode_blocks"],
         "max_abs_err": max(err3, err4),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -699,6 +850,7 @@ def main() -> int:
         "source": "snappy_tpu_torch/csrc/encode_blocks.cu",
         "replaces": "snappy_tpu/ops/pallas_encode.py:259",
         "launches": enc_launches,
+        "stream_launches": stream_launches["encode_blocks"],
         "max_abs_err": max(err7, err8),
         "ms": enc_ms,
         "plain_ms": enc_plain_ms,

@@ -18,10 +18,9 @@ import pytest
 import snappy_tpu
 import snappy_tpu.parallel.host as ref_host
 import snappy_tpu_torch
-from snappy_tpu.core.config import DEFAULT_MIN_PROFIT
 from snappy_tpu.core.config import FrameConfig as RefFrameConfig
 from snappy_tpu.native import libsnappy
-from snappy_tpu.ops import encode_xla, pallas_encode
+from snappy_tpu.ops import encode_xla
 from snappy_tpu.ops import route as ref_route
 from snappy_tpu.parallel import framed as ref_framed
 from snappy_tpu_torch.core import varint
@@ -31,20 +30,9 @@ from snappy_tpu_torch.parallel import framed
 from snappy_tpu_torch.parallel import host as fhost
 
 from conftest import read_testdata
-from torch_helpers import config_from_reference
+from torch_helpers import config_from_reference, reference_k2  # noqa: F401  (fixture)
 
 BLOCK = 1 << 16
-
-
-def _k2(block_size, min_profit):
-    return pallas_encode.encode_blocks_jit(block_size, True, min_profit, contest=False)
-
-
-@pytest.fixture
-def reference_k2(monkeypatch):
-    """snappy_tpu with K2 wherever a TPU would run it."""
-    monkeypatch.setattr(ref_host, "block_encoder", lambda nb, bs, mp: _k2(bs, mp))
-    monkeypatch.setattr(encode_xla, "_best_encoder", lambda nb: _k2(BLOCK, DEFAULT_MIN_PROFIT))
 
 
 def _routing_tail() -> np.ndarray:

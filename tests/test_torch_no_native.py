@@ -17,25 +17,19 @@ import numpy as np
 import pytest
 
 import snappy_tpu
-import snappy_tpu.parallel.host as ref_host
 import snappy_tpu_torch
-from snappy_tpu.core.config import DEFAULT_MIN_PROFIT
 from snappy_tpu.core.config import FrameConfig as RefFrameConfig
 from snappy_tpu.native import runtime as ref_nat
-from snappy_tpu.ops import encode_xla, pallas_encode
+from snappy_tpu.ops import encode_xla
 from snappy_tpu.parallel import framed as ref_framed
 from snappy_tpu_torch.native import runtime as nat
 from snappy_tpu_torch.ops import host, route
 from snappy_tpu_torch.parallel import framed
 
 from conftest import read_testdata
-from torch_helpers import config_from_reference
+from torch_helpers import config_from_reference, patch_reference_k2
 
 BLOCK = 1 << 16
-
-
-def _k2(block_size, min_profit):
-    return pallas_encode.encode_blocks_jit(block_size, True, min_profit, contest=False)
 
 
 def _unloadable():
@@ -48,8 +42,7 @@ def no_native(monkeypatch):
     where a TPU would."""
     monkeypatch.setattr(nat, "_load", _unloadable)
     monkeypatch.setattr(ref_nat, "_load", _unloadable)
-    monkeypatch.setattr(ref_host, "block_encoder", lambda nb, bs, mp: _k2(bs, mp))
-    monkeypatch.setattr(encode_xla, "_best_encoder", lambda nb: _k2(BLOCK, DEFAULT_MIN_PROFIT))
+    patch_reference_k2(monkeypatch)
     assert not nat.available() and not ref_nat.available()
 
 

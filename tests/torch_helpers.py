@@ -9,6 +9,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import pytest
 
 import snappy_tpu_torch.core.config as port_config
 from snappy_tpu.core import config as ref_config
@@ -29,6 +30,29 @@ def config_from_reference(cfg):
         if isinstance(cfg, ref_cls):
             return port_cls(**dataclasses.asdict(cfg))
     raise TypeError(f"not a snappy_tpu config: {type(cfg).__name__}")
+
+
+def patch_reference_k2(monkeypatch) -> None:
+    """Make snappy_tpu encode with its Pallas block encoder, K2 (interpret
+    mode on a CPU, ``contest=False``), wherever a TPU would select it: on a
+    CPU host it would pick its XLA encoder, another parse. Frames go through
+    ``parallel/host.py::block_encoder``, raw streams through
+    ``encode_xla._best_encoder``."""
+    import snappy_tpu.parallel.host as ref_host
+    from snappy_tpu.core.config import DEFAULT_MIN_PROFIT
+    from snappy_tpu.ops import encode_xla, pallas_encode
+
+    def k2(block_size, min_profit):
+        return pallas_encode.encode_blocks_jit(block_size, True, min_profit, contest=False)
+
+    monkeypatch.setattr(ref_host, "block_encoder", lambda nb, bs, mp: k2(bs, mp))
+    monkeypatch.setattr(encode_xla, "_best_encoder", lambda nb: k2(BLOCK_SIZE, DEFAULT_MIN_PROFIT))
+
+
+@pytest.fixture
+def reference_k2(monkeypatch):
+    """snappy_tpu with K2 wherever a TPU would run it."""
+    patch_reference_k2(monkeypatch)
 
 
 def native_block_streams(raw: bytes, block_size: int = BLOCK_SIZE) -> tuple[list[bytes], list[int]]:
