@@ -92,10 +92,28 @@ non-zero:
               back to the same bytes, an output cut and resume_uncompress_file,
               and one `python -m snappy_tpu_torch decompress` subprocess with no
               --device
+ 14. mesh     the mesh and multi-host drivers on the 64 MiB corpus mix:
+              compress_framed and uncompress_framed with mesh= of 1, 3 and 4
+              shards, all on cuda:0, the launch counts reset just before each
+              call and read just after (K2 and K1 once a shard, neither in the
+              other's call); the frames identical for every shard count, no
+              block routed, the output bit-exact; K2 and K1 against their
+              plain versions on the rows only the mesh path gives them (the
+              blocks routing sends to the host on the single-device path, and
+              the 3-shard mesh's padding rows: blen 0, clen = ulen = 0);
+              gather=True equal to gather=False for the encode and the decode;
+              one launch of 1024 blocks against four of 256 (device time);
+              two ranks of tools/multihost_run on the one card over gloo, a
+              64 MiB file: the frame equal to the mesh frame, the output
+              bit-exact, K2 and K1 once a rank, both exit 0; then
+              tools/dryrun_multichip at 4 shards. Wall times on the host
+              clock beside the card's name and power limit
 
 Before the last line it prints the card's `nvidia-smi` name and power limit
 and one JSON line {"kernels": [...]} with each kernel's launches on its main
-path, its launches on phase 13's stream path (K1 and K2: "stream_launches"),
+path, its launches on phase 13's stream path (K1 and K2: "stream_launches")
+and on phase 14's 4-shard mesh and two ranks ("mesh_launches",
+"multihost_launches", the ranks' sum),
 its largest difference from the plain version, its time beside the
 plain version's at the main path's shape, and its bound: the larger of the
 bytes it must move (inputs read once, outputs written once, as this run's
@@ -328,6 +346,186 @@ def stream_phase(card: str, name: str, raw_main: bytes) -> dict[str, int]:
           f"`python -m snappy_tpu_torch decompress` (no --device) equal to the input in {t_cli:.1f} s "
           f"with the process start", flush=True)
     return {"decode_blocks": dec_launches, "encode_blocks": enc_launches}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(nprocs: int, in_path: str, frame_path: str, out_path: str, device: str) -> list[dict]:
+    """Run ``nprocs`` ranks of tools/multihost_run, one card-shard each, and
+    return each rank's JSON record; fails unless every rank exits 0."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "snappy_tpu_torch.tools.multihost_run", f"127.0.0.1:{port}", str(nprocs), str(r),
+         in_path, frame_path, out_path, "--device", device],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(nprocs)]
+    try:
+        done = [p.communicate(timeout=400) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (out, err)) in enumerate(zip(procs, done)):
+        check(p.returncode == 0, f"rank {r} of {nprocs} exited {p.returncode}: {err[-2000:]}")
+    return [json.loads(out.strip().splitlines()[-1]) for out, _ in done]
+
+
+def mesh_phase(card: str, raw_main: bytes, routed_frame: bytes, dev, rank_device: str = "cuda") -> dict[str, int]:
+    """Phase 14: the mesh and multi-host drivers on ``raw_main``, every shard
+    on ``dev``. Returns the 4-shard mesh's launches of each kernel and the
+    two ranks' launches."""
+    import torch
+
+    import snappy_tpu_torch
+    from snappy_tpu_torch.native import runtime as nat
+    from snappy_tpu_torch.ops import cuda_decode, cuda_encode, decode_torch, encode_torch, route
+    from snappy_tpu_torch.ops.host import blockify, to_device
+    from snappy_tpu_torch.parallel import distributed, framed
+    from snappy_tpu_torch.parallel import host as fhost
+    from snappy_tpu_torch.tools import dryrun_multichip
+    from snappy_tpu_torch.utils.metrics import time_device_fn
+
+    n_blocks = -(-len(raw_main) // BLOCK)
+    gb = len(raw_main) / 1e9
+    frames, calls, counts = {}, {}, {}
+    for shards in (1, 3, 4):
+        mesh = distributed.mesh_1d([dev] * shards)
+        c_calls, u_calls = [], []
+        for rep in range(3):
+            cuda_encode.launches = cuda_decode.launches = 0
+            t0 = time.perf_counter()
+            frame = snappy_tpu_torch.compress_framed(raw_main, mesh=mesh)
+            c_calls.append(time.perf_counter() - t0)
+            enc, dec_in_enc = cuda_encode.launches, cuda_decode.launches
+            cuda_encode.launches = cuda_decode.launches = 0
+            t0 = time.perf_counter()
+            out = snappy_tpu_torch.uncompress_framed(frame, mesh=mesh)
+            u_calls.append(time.perf_counter() - t0)
+            dec, enc_in_dec = cuda_decode.launches, cuda_encode.launches
+            check(enc == shards and dec_in_enc == 0, f"{shards}-shard compress_framed: encoder launches {enc}, "
+                  f"decoder {dec_in_enc}")
+            check(dec == shards and enc_in_dec == 0, f"{shards}-shard uncompress_framed: decoder launches {dec}, "
+                  f"encoder {enc_in_dec}")
+            check(out == raw_main, f"{shards}-shard mesh round trip is not bit-exact")
+            check(frames.setdefault(shards, frame) == frame, f"{shards}-shard mesh frame changed between calls")
+        calls[shards] = (c_calls, u_calls)
+        counts[shards] = (enc, dec)
+    frame = frames[1]
+    check(frames[3] == frame and frames[4] == frame, "the mesh frame depends on the shard count")
+    check(nat.uncompress(framed.frame_to_raw(frame)) == raw_main, "the mesh frame does not decode natively")
+    check(snappy_tpu_torch.uncompress_framed(frame, device=dev) == raw_main,
+          "the mesh frame does not decode through uncompress_framed without a mesh")
+    idx = framed.parse_index(frame)
+    print(f"[14 mesh] {len(raw_main) / 2**20:g} MiB corpus mix, {n_blocks} blocks: meshes of 1, 3 and 4 shards on {dev} write one frame "
+          f"({len(frame)} bytes; the routed frame of phase 8 is {len(routed_frame)} bytes, "
+          f"{'equal' if frame == routed_frame else 'different'}), decoded bit-exact by each mesh, without a mesh "
+          f"and natively; launches (encode, decode) per call {counts}", flush=True)
+    for shards, (c_calls, u_calls) in calls.items():
+        print(f"[14 mesh] on {card}: {shards}-shard compress_framed min {min(c_calls):.4f} s "
+              f"({gb / min(c_calls):.3f} GB/s) of {[round(c, 4) for c in c_calls]}, uncompress_framed min "
+              f"{min(u_calls):.4f} s ({gb / min(u_calls):.3f} GB/s) of {[round(c, 4) for c in u_calls]}", flush=True)
+
+    # The rows only the mesh path gives the kernels: the blocks that routing
+    # sends to the host, and the 3-shard mesh's padding rows.
+    nb3 = distributed.pad_block_count(n_blocks, 3)
+    buf, blens = blockify(np.frombuffer(raw_main, np.uint8), BLOCK, nb3)
+    host_idx = route.host_blocks(buf[:n_blocks], blens[:n_blocks])
+    rows = np.concatenate([host_idx, np.arange(n_blocks, nb3)])
+    e_args = (to_device(buf[rows], dev), to_device(blens[rows], dev), 2)
+    k_out, k_olens = cuda_encode.encode_blocks(*e_args)
+    p_out, p_olens = encode_torch.encode_blocks(*e_args)
+    err_e = max_err(k_out, p_out)
+    check(err_e == 0 and torch.equal(k_out, p_out) and torch.equal(k_olens, p_olens),
+          "the encode kernel and its plain version differ on the mesh's rows")
+    pad = len(rows) - len(host_idx)
+    check(k_olens[len(host_idx):].tolist() == [0] * pad and not bool(k_out[len(host_idx):].any()),
+          "the encode kernel wrote to a padding row")
+    starts = np.array([idx.block_ranges()[i][0] for i in host_idx], np.int64)
+    d_clens = idx.comp_lens[host_idx].astype(np.int64)
+    d_ulens = np.array([idx.block_ulen(int(i)) for i in host_idx], np.int64)
+    comp, d_clens, d_ulens = fhost.block_batch(np.frombuffer(frame, np.uint8), starts, d_clens, d_ulens, BLOCK,
+                                               len(rows))
+    d_args = (to_device(comp, dev), to_device(d_clens, dev), to_device(d_ulens, dev), BLOCK)
+    k_out, k_ok, k_total = cuda_decode.decode_blocks(*d_args)
+    p_out, p_ok, p_total = decode_torch.decode_blocks(*d_args)
+    err_d = max_err(k_out, p_out)
+    check(err_d == 0 and torch.equal(k_out, p_out) and torch.equal(k_ok, p_ok) and bool(k_ok.all())
+          and torch.equal(k_total, p_total), "the decode kernel and its plain version differ on the mesh's rows")
+    check(k_total[len(host_idx):].tolist() == [0] * pad and not bool(k_out[len(host_idx):].any()),
+          "the decode kernel wrote to a padding row")
+    for j, i in enumerate(host_idx.tolist()):
+        check(k_out[j, : d_ulens[j]].cpu().numpy().tobytes() == raw_main[i * BLOCK : (i + 1) * BLOCK],
+              f"block {i} decoded wrong")
+    print(f"[14 mesh] {len(host_idx)} blocks that routing sends to the host and {pad} padding rows: K2 and K1 "
+          f"identical to their plain versions (max |kernel - plain| = {max(err_e, err_d)}); padding rows olen 0, "
+          f"ok with total 0, all zero", flush=True)
+
+    # gather=True against gather=False, and one launch against four.
+    mesh4 = distributed.mesh_1d([dev] * 4)
+    g = distributed.compress_blocks(buf[:n_blocks], blens[:n_blocks], mesh4, gather=True)
+    s = distributed.compress_blocks(buf[:n_blocks], blens[:n_blocks], mesh4)
+    check(all(torch.equal(t, torch.cat(parts)) for got, parts in zip(g, s) for t in got),
+          "gathered encode differs from its shards")
+    comp, d_clens, d_ulens, out_size = fhost.frame_batch(frame, idx)
+    g = distributed.decompress_blocks(comp, d_clens, d_ulens, mesh4, out_size, gather=True)
+    s = distributed.decompress_blocks(comp, d_clens, d_ulens, mesh4, out_size)
+    check(all(torch.equal(t, torch.cat(parts)) for got, parts in zip(g, s) for t in got),
+          "gathered decode differs from its shards")
+    check(bool(g[1][0].all()) and g[0][0].cpu().numpy().tobytes() == raw_main, "gathered decode is not bit-exact")
+    del g, s
+    whole = (to_device(comp, dev), to_device(d_clens, dev), to_device(d_ulens, dev), out_size)
+    quarters = [tuple(a[k * n_blocks // 4 : (k + 1) * n_blocks // 4] for a in whole[:3]) + (out_size,)
+                for k in range(4)]
+    dec_one = time_device_fn(cuda_decode.decode_blocks, whole, iters=10) * 1e3
+    dec_four = time_device_fn(lambda *_: [cuda_decode.decode_blocks(*q) for q in quarters], whole[:1], iters=10) * 1e3
+    e_whole = (to_device(buf[:n_blocks], dev), to_device(blens[:n_blocks], dev), 2)
+    e_quarters = [tuple(a[k * n_blocks // 4 : (k + 1) * n_blocks // 4] for a in e_whole[:2]) + (2,)
+                  for k in range(4)]
+    enc_one = time_device_fn(cuda_encode.encode_blocks, e_whole, iters=10) * 1e3
+    enc_four = time_device_fn(lambda *_: [cuda_encode.encode_blocks(*q) for q in e_quarters], e_whole[:1],
+                              iters=10) * 1e3
+    print(f"[14 mesh] gather=True equals gather=False for the encode and the decode; on {card}, device time "
+          f"(median of 10): K2 one launch of {n_blocks} blocks {enc_one:.4f} ms, four of {n_blocks // 4} "
+          f"{enc_four:.4f} ms; K1 one launch {dec_one:.4f} ms, four {dec_four:.4f} ms", flush=True)
+
+    # Two ranks on the one card, over gloo.
+    with tempfile.TemporaryDirectory() as tmp:
+        in_path, frame_path, out_path = (os.path.join(tmp, f) for f in ("in.bin", "mh.frame", "mh.out"))
+        with open(in_path, "wb") as f:
+            f.write(raw_main)
+        t0 = time.perf_counter()
+        recs = run_ranks(2, in_path, frame_path, out_path, rank_device)
+        t_ranks = time.perf_counter() - t0
+        with open(frame_path, "rb") as f:
+            check(f.read() == frame, "the two ranks' frame differs from the mesh frame")
+        with open(out_path, "rb") as f:
+            check(f.read() == raw_main, "the two ranks' output is not bit-exact")
+    for r in recs:
+        check(r["mesh"] == 2 and r["frame_bytes"] == len(frame) and r["bytes"] == len(raw_main),
+              f"rank record {r}")
+        check(rank_device != "cuda" or r["launches"] == {"encode_blocks": 1, "decode_blocks": 1},
+              f"rank {r['rank']} launches {r['launches']}")
+    print(f"[14 mesh] two ranks of tools/multihost_run on {card} over gloo, {len(raw_main) / 2**20:g} MiB file: frame equal to the mesh "
+          f"frame, output bit-exact, both exit 0; " + "; ".join(
+              f"rank {r['rank']} on {r['device']}: set-up {r.get('setup_s', 0.0):.4f} s, compress_framed "
+              f"{r['compress_s']:.4f} s, uncompress_framed {r['uncompress_s']:.4f} s, launches {r['launches']}"
+              for r in recs)
+          + f"; {t_ranks:.1f} s with the processes' start", flush=True)
+    t0 = time.perf_counter()
+    dryrun_multichip.dryrun_multichip(4, rank_device)  # prints its line
+    print(f"[14 mesh] dryrun_multichip(4) passed in {time.perf_counter() - t0:.2f} s on {card}", flush=True)
+    return {
+        "encode_blocks": counts[4][0],
+        "decode_blocks": counts[4][1],
+        "multihost_encode_blocks": sum(r["launches"]["encode_blocks"] for r in recs),
+        "multihost_decode_blocks": sum(r["launches"]["decode_blocks"] for r in recs),
+    }
 
 
 def main() -> int:
@@ -830,6 +1028,11 @@ def main() -> int:
     stream_launches = stream_phase(card, name, raw_main)
     print(f"[13 stream] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 14. the mesh and multi-host drivers
+    t0 = time.perf_counter()
+    mesh_launches = mesh_phase(card, raw_main, frame_w, dev)
+    print(f"[14 mesh] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "decode_blocks",
@@ -838,6 +1041,8 @@ def main() -> int:
         "replaces": "snappy_tpu/ops/pallas_decode.py:297",
         "launches": main_launches,
         "stream_launches": stream_launches["decode_blocks"],
+        "mesh_launches": mesh_launches["decode_blocks"],
+        "multihost_launches": mesh_launches["multihost_decode_blocks"],
         "max_abs_err": max(err3, err4),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -851,6 +1056,8 @@ def main() -> int:
         "replaces": "snappy_tpu/ops/pallas_encode.py:259",
         "launches": enc_launches,
         "stream_launches": stream_launches["encode_blocks"],
+        "mesh_launches": mesh_launches["encode_blocks"],
+        "multihost_launches": mesh_launches["multihost_encode_blocks"],
         "max_abs_err": max(err7, err8),
         "ms": enc_ms,
         "plain_ms": enc_plain_ms,

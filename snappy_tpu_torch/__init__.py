@@ -7,14 +7,20 @@ by another (``csrc/encode_blocks.cu``), while incompressible blocks go to
 the native C++ encoder on the host. A third kernel, the pinned round-4
 decoder (``csrc/decode_blocks_r4.cu``), is the other side of the decode
 A/B in ``chip_smoke.py`` and no entry point selects it. Each kernel has a
-plain torch version of the same function for CPU tensors.
+plain torch version of the same function for CPU tensors. Framed calls
+shard their blocks over a mesh of devices with ``mesh=``, and
+``parallel/multihost.py`` writes and reads one frame from several processes.
 
 Public API:
   - compress(data, backend=, device=) -> bytes    raw snappy stream (backends
                                                   "native", "torch", "cpu")
   - uncompress(data, backend=, device=) -> bytes  decode a raw stream
-  - compress_framed(data, config=, device=)       framed stream
-  - uncompress_framed(frame, device=) -> bytes    decode a framed stream
+  - compress_framed(data, config=, device=, mesh=)  framed stream
+  - uncompress_framed(frame, device=, mesh=)      decode a framed stream
+  - mesh_1d(devices=None) -> Mesh                 the devices a framed call
+                                                  shards its blocks over
+                                                  (mesh=; every CUDA device
+                                                  by default)
   - max_compressed_length(n) -> int
   - uncompressed_length(data) -> (n, header_len)
 
@@ -30,7 +36,7 @@ from .core import (
     SnappyError,
     max_compressed_length,
 )
-from .parallel import compress_framed, uncompress_framed
+from .parallel import compress_framed, mesh_1d, uncompress_framed
 
 __version__ = "0.1.0"
 
@@ -43,6 +49,7 @@ __all__ = [
     "compress",
     "compress_framed",
     "max_compressed_length",
+    "mesh_1d",
     "uncompress",
     "uncompress_framed",
     "uncompressed_length",

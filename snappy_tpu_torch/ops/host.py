@@ -65,15 +65,17 @@ def pack_rows(buf: np.ndarray, starts: np.ndarray, clens: np.ndarray) -> np.ndar
     return rows
 
 
-def blockify(inp: np.ndarray, block_size: int) -> tuple[np.ndarray, np.ndarray]:
-    """The blocks of ``inp`` as the rows of a uint8[n, block_size + ENC_PAD]
-    batch, zero past each block, and their lengths int32[n]; one copy."""
+def blockify(inp: np.ndarray, block_size: int, rows: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """The blocks of ``inp`` as the rows of a uint8[rows, block_size + ENC_PAD]
+    batch, zero past each block, and their lengths int32[rows]; one copy.
+    ``rows`` defaults to the block count; rows past it are empty (blen 0)."""
     n = len(inp)
     n_blocks = -(-n // block_size)
     full = n // block_size
-    buf = np.zeros((n_blocks, block_size + ENC_PAD), np.uint8)
+    buf = np.zeros((n_blocks if rows is None else rows, block_size + ENC_PAD), np.uint8)
     buf[:full, :block_size] = inp[: full * block_size].reshape(full, block_size)
-    blens = np.full(n_blocks, block_size, np.int32)
+    blens = np.zeros(len(buf), np.int32)
+    blens[:full] = block_size
     if full < n_blocks:
         buf[full, : n - full * block_size] = inp[full * block_size :]
         blens[full] = n - full * block_size

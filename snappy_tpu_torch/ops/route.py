@@ -112,22 +112,26 @@ def dispatch_routed(buf: np.ndarray, blens: np.ndarray, host_idx, device, min_pr
     return dev, dev_idx, native, n_blocks
 
 
+def device_streams(out: torch.Tensor, olens: torch.Tensor) -> list[bytes]:
+    """Wait for the block encoder's (out, olens) and return each row's tag
+    stream. Only each row's first ``olens`` bytes are copied back."""
+    lens = olens.cpu().numpy().astype(np.int64)
+    if (lens < 0).any():
+        raise RuntimeError("the block encoder refused a row it was given")
+    keep = torch.arange(out.shape[1], device=out.device)[None, :] < olens[:, None]
+    flat = out[keep].cpu().numpy()
+    ends = np.cumsum(lens)
+    return [flat[e - n : e].tobytes() for e, n in zip(ends.tolist(), lens.tolist())]
+
+
 def assemble_routed(ticket) -> list[bytes]:
-    """Wait for the device part and return the tag streams in block order.
-    Only each device row's first ``olens`` bytes are copied back."""
+    """Wait for the device part and return the tag streams in block order."""
     dev, dev_idx, native, n_blocks = ticket
     streams: list[bytes] = [b""] * n_blocks
     if dev is not None:
         with trace_annotation("route.assemble_device"):
-            out, olens = dev
-            lens = olens.cpu().numpy().astype(np.int64)
-            if (lens < 0).any():
-                raise RuntimeError("the block encoder refused a row it was given")
-            keep = torch.arange(out.shape[1], device=out.device)[None, :] < olens[:, None]
-            flat = out[keep].cpu().numpy()
-            ends = np.cumsum(lens)
-            for j, i in enumerate(dev_idx.tolist()):
-                streams[i] = flat[ends[j] - lens[j] : ends[j]].tobytes()
+            for i, s in zip(dev_idx.tolist(), device_streams(*dev)):
+                streams[i] = s
     for i, s in native.items():
         streams[i] = s
     return streams

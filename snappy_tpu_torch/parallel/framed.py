@@ -71,8 +71,10 @@ class FrameIndex:
         return self.total_len - self.block_size * (self.n_blocks - 1)
 
 
-def parse_index(frame: bytes) -> FrameIndex:
-    """Parse header + index, and check that the payload is all there."""
+def parse_index(frame: bytes, require_payload: bool = True) -> FrameIndex:
+    """Parse header + index, and check that the payload is all there.
+    ``require_payload=False`` validates the header and index alone, for a
+    reader that fetches payload ranges separately (``multihost.py``)."""
     if len(frame) < _HEADER.size:
         raise CorruptInputError("frame too short")
     magic, flags, block_size, total_len, n_blocks = _HEADER.unpack_from(frame, 0)
@@ -93,7 +95,7 @@ def parse_index(frame: bytes) -> FrameIndex:
     if flags & FLAG_CRC:
         crcs = np.frombuffer(frame, np.uint32, n_blocks, off)
         off += 4 * n_blocks
-    if off + int(comp_lens.sum(dtype=np.int64)) > len(frame):
+    if require_payload and off + int(comp_lens.sum(dtype=np.int64)) > len(frame):
         raise CorruptInputError("frame payload truncated")
     return FrameIndex(flags, block_size, total_len, comp_lens, crcs, off)
 

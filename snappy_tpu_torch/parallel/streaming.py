@@ -1,7 +1,8 @@
 """Streaming pipeline for streams larger than memory.
 
-The counterpart of ``snappy_tpu/parallel/streaming.py``, on one device. A
-stream is a sequence of self-delimiting frames (``parallel/framed.py``),
+The counterpart of ``snappy_tpu/parallel/streaming.py``, on one device or
+over a mesh (``mesh=``, passed through to ``host.py``). A stream is a
+sequence of self-delimiting frames (``parallel/framed.py``),
 each covering up to ``blocks_per_frame`` blocks, byte for byte the
 reference's format, so a sequence written or torn by either package reads
 and resumes in the other. The pipeline keeps a bounded queue of in-flight
@@ -96,9 +97,11 @@ def compress_stream(
     config: FrameConfig = DEFAULT_FRAME_CONFIG,
     device="cuda",
     blocks_per_frame: int = DEFAULT_BLOCKS_PER_FRAME,
+    mesh=None,
 ) -> int:
     """Compress ``src`` into a sequence of frames on ``dst``, coded on
-    ``device``. Returns the compressed bytes written."""
+    ``device`` (or sharded over ``mesh``, see ``host.py``). Returns the
+    compressed bytes written."""
     chunk_bytes = blocks_per_frame * config.block_size
     total = 0
     pending: deque = deque()
@@ -107,7 +110,7 @@ def compress_stream(
         if not eof:
             chunk = src.read(chunk_bytes)
             if chunk:
-                pending.append(_host.dispatch_compress(chunk, config=config, device=device))
+                pending.append(_host.dispatch_compress(chunk, config=config, device=device, mesh=mesh))
             else:
                 eof = True
         while pending and (len(pending) > PIPELINE_DEPTH or eof):
@@ -124,9 +127,9 @@ def iter_frames(src: BinaryIO) -> Iterator[bytes]:
         yield got[0]
 
 
-def uncompress_stream(src: BinaryIO, dst: BinaryIO, device="cuda", max_retries: int = 1) -> int:
-    """Decode a frame-sequence stream on ``device``; returns the
-    uncompressed bytes written.
+def uncompress_stream(src: BinaryIO, dst: BinaryIO, device="cuda", max_retries: int = 1, mesh=None) -> int:
+    """Decode a frame-sequence stream on ``device`` (or over ``mesh``);
+    returns the uncompressed bytes written.
 
     A frame whose decode fails is dispatched again up to ``max_retries``
     times from its frame bytes before the error propagates; a
@@ -153,7 +156,7 @@ def uncompress_stream(src: BinaryIO, dst: BinaryIO, device="cuda", max_retries: 
                     raise
                 retries += 1
                 retry_exc = type(e).__name__
-                ticket = _host.dispatch_uncompress(frame_bytes, device=device)
+                ticket = _host.dispatch_uncompress(frame_bytes, device=device, mesh=mesh)
         raise AssertionError("unreachable")
 
     it = iter_frames(src)
@@ -164,7 +167,7 @@ def uncompress_stream(src: BinaryIO, dst: BinaryIO, device="cuda", max_retries: 
             if frame is None:
                 eof = True
             else:
-                pending.append((frame, _host.dispatch_uncompress(frame, device=device)))
+                pending.append((frame, _host.dispatch_uncompress(frame, device=device, mesh=mesh)))
         while pending and (len(pending) > PIPELINE_DEPTH or eof):
             out = commit(*pending.popleft())
             dst.write(out)
@@ -231,11 +234,12 @@ def resume_compress_file(
     config: FrameConfig = DEFAULT_FRAME_CONFIG,
     device="cuda",
     blocks_per_frame: int = DEFAULT_BLOCKS_PER_FRAME,
+    mesh=None,
 ) -> int:
     """Compress ``in_path`` to a frame sequence at ``out_path`` on
-    ``device``, resuming from the last durable frame where an earlier run
-    died mid-stream. Returns the compressed size. Restartable any number of
-    times; a first run is the resume of nothing."""
+    ``device`` (or over ``mesh``), resuming from the last durable frame
+    where an earlier run died mid-stream. Returns the compressed size.
+    Restartable any number of times; a first run is the resume of nothing."""
     durable, _, covered = scan_durable_frames(out_path)
     chunk = blocks_per_frame * config.block_size
     if covered % chunk:
@@ -254,12 +258,15 @@ def resume_compress_file(
         _truncate(out_path, durable)
         with open(out_path, "r+b") as dst:
             dst.seek(durable)
-            written = compress_stream(src, dst, config=config, device=device, blocks_per_frame=blocks_per_frame)
+            written = compress_stream(
+                src, dst, config=config, device=device, blocks_per_frame=blocks_per_frame, mesh=mesh
+            )
     return durable + written
 
 
-def resume_uncompress_file(in_path: str, out_path: str, device="cuda") -> int:
-    """Decode a frame-sequence file on ``device``, resuming after a kill.
+def resume_uncompress_file(in_path: str, out_path: str, device="cuda", mesh=None) -> int:
+    """Decode a frame-sequence file on ``device`` (or over ``mesh``),
+    resuming after a kill.
 
     The output file is its own progress marker: frames decode in order and
     append, so a kill leaves a prefix, possibly torn; resume cuts it to the
@@ -293,7 +300,7 @@ def resume_uncompress_file(in_path: str, out_path: str, device="cuda") -> int:
                 if frame is None:
                     eof = True
                 else:
-                    pending.append(_host.dispatch_uncompress(frame, device=device))
+                    pending.append(_host.dispatch_uncompress(frame, device=device, mesh=mesh))
             while pending and (len(pending) > PIPELINE_DEPTH or eof):
                 out = _host.assemble_uncompress(pending.popleft())
                 dst.write(out)

@@ -6,6 +6,7 @@ snappy_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -40,19 +41,56 @@ def patch_reference_k2(monkeypatch) -> None:
     ``encode_xla._best_encoder``."""
     import snappy_tpu.parallel.host as ref_host
     from snappy_tpu.core.config import DEFAULT_MIN_PROFIT
-    from snappy_tpu.ops import encode_xla, pallas_encode
+    from snappy_tpu.ops import encode_xla
 
-    def k2(block_size, min_profit):
-        return pallas_encode.encode_blocks_jit(block_size, True, min_profit, contest=False)
+    monkeypatch.setattr(ref_host, "block_encoder", lambda nb, bs, mp: _k2(bs, mp))
+    monkeypatch.setattr(encode_xla, "_best_encoder", lambda nb: _k2(BLOCK_SIZE, DEFAULT_MIN_PROFIT))
 
-    monkeypatch.setattr(ref_host, "block_encoder", lambda nb, bs, mp: k2(bs, mp))
-    monkeypatch.setattr(encode_xla, "_best_encoder", lambda nb: k2(BLOCK_SIZE, DEFAULT_MIN_PROFIT))
+
+def _k2(block_size, min_profit):
+    from snappy_tpu.ops import pallas_encode
+
+    return pallas_encode.encode_blocks_jit(block_size, True, min_profit, contest=False)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """The module's torch ops on one intra-op thread. The plain versions
+    run many small ops; on a host busy with other test workers, a pool of
+    threads a worker stalls them (a module took 18x its time alone)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
 def reference_k2(monkeypatch):
     """snappy_tpu with K2 wherever a TPU would run it."""
     patch_reference_k2(monkeypatch)
+
+
+@contextlib.contextmanager
+def reference_mesh_k2_patched():
+    """patch_reference_k2, and K2 on every shard of snappy_tpu's mesh path,
+    while the block is open. ``distributed._sharded_encode`` looks the
+    encoder up in ``ops.select.block_encoder`` when it traces, and keeps
+    what it traced in an ``lru_cache``: that cache is cleared when the
+    patch begins and again when it ends."""
+    from snappy_tpu.core.config import DEFAULT_MIN_PROFIT
+    from snappy_tpu.ops import select as ref_select
+    from snappy_tpu.parallel import distributed as ref_distributed
+
+    with pytest.MonkeyPatch.context() as mp:
+        patch_reference_k2(mp)
+        mp.setattr(ref_select, "block_encoder", lambda nb, bs, p=None: _k2(bs, DEFAULT_MIN_PROFIT if p is None else p))
+        ref_distributed._sharded_encode.cache_clear()
+        try:
+            yield
+        finally:
+            ref_distributed._sharded_encode.cache_clear()
 
 
 def native_block_streams(raw: bytes, block_size: int = BLOCK_SIZE) -> tuple[list[bytes], list[int]]:
