@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive snappy_tpu_torch's read and write paths, the decode A/B, the probes and the streaming pipeline once on one CUDA GPU (Hopper, sm_90).
+"""Drive snappy_tpu_torch's read and write paths, the decode A/B, the probes, the streaming pipeline, the mesh and the array encoder once on one CUDA GPU (Hopper, sm_90).
 
     python3 chip_smoke.py
 
@@ -108,6 +108,25 @@ non-zero:
               bit-exact, K2 and K1 once a rank, both exit 0; then
               tools/dryrun_multichip at 4 shards. Wall times on the host
               clock beside the card's name and power limit
+ 15. array encoder  encoder="array" (ops/encode_array.py, the JAX
+              package's off-TPU parse in torch) on the 64 MiB corpus mix:
+              compress_framed routes as phase 8 (51 blocks to the host, 973
+              to one call of the array encoder, K2 not launched), the frame
+              decodes through K1 and natively and is the rows of a direct
+              call beside the routed blocks' native streams; the mix's first
+              37 blocks (every corpus file) identical on the card and the
+              CPU; where libsnappy is installed every 8th stream decodes
+              under it and the rows are no larger than its output; raw
+              compress of a 4 MiB slice identical on the card and the CPU,
+              and its frames over meshes of 1 and 4 shards identical. Then
+              the array encoder beside K2 on the same 973 rows (CUDA events,
+              median of 5), one call by stage (candidates, extension, the
+              two parses, emission; the extension's chain links, doubling
+              and end-lane loop with its rounds: tools/profile_array.split),
+              whole compress_framed calls with each
+              encoder (host clock, min of 3), the rows', frames' and native
+              frame's bytes, max_memory_allocated and the phase's seconds,
+              and a {"array_encoder": {...}} line of them
 
 Before the last line it prints the card's `nvidia-smi` name and power limit
 and one JSON line {"kernels": [...]} with each kernel's launches on its main
@@ -125,7 +144,14 @@ knob ("knob"), and the plain version's and the kernel's at the gate knob
 ("plain_knob": "plain_ms", "ms_at_plain_knob"); the gate knob is the high
 knob but for P1 and P5. No
 PyTorch call computes a Snappy block decode or encode or a probe, so
-library_ms is null. Times are informational. The last line is {"ok": true, "device": {...}}. Without a
+library_ms is null. The array encoder ports no TPU kernel, so it has no
+entry there: its line {"array_encoder": {...}} holds the card, the rows it
+and the host took, its rows a chunk, its device time ("ms") beside K2's
+("k2_ms"), its stages' ms in one call and that call's, the end-lane loop's
+rounds and lane-rounds, the rows' and the
+frames' bytes for each encoder (and native), the whole compress_framed
+calls' seconds, max_memory_allocated and the phase's seconds. Times are
+informational. The last line is {"ok": true, "device": {...}}. Without a
 CUDA device it exits with code 2 and prints no result. It imports no JAX and
 nothing of snappy_tpu.
 """
@@ -526,6 +552,144 @@ def mesh_phase(card: str, raw_main: bytes, routed_frame: bytes, dev, rank_device
         "multihost_encode_blocks": sum(r["launches"]["encode_blocks"] for r in recs),
         "multihost_decode_blocks": sum(r["launches"]["decode_blocks"] for r in recs),
     }
+
+
+def array_phase(card: str, raw_main: bytes, kernel_frame: bytes, dev) -> dict:
+    """Phase 15: the array encoder (``encoder="array"``, ops/encode_array.py)
+    on ``raw_main`` on ``dev``: gates, then its times beside K2's on the
+    same rows. Returns the {"array_encoder": ...} record."""
+    import torch
+
+    import snappy_tpu_torch
+    from snappy_tpu_torch.core import varint
+    from snappy_tpu_torch.native import libsnappy
+    from snappy_tpu_torch.native import runtime as nat
+    from snappy_tpu_torch.ops import cuda_encode, encode_array, route
+    from snappy_tpu_torch.ops.host import blockify, to_device
+    from snappy_tpu_torch.parallel import distributed, framed
+    from snappy_tpu_torch.tools import profile_array
+    from snappy_tpu_torch.utils.metrics import time_device_fn
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    buf, blens = blockify(np.frombuffer(raw_main, np.uint8), BLOCK)
+    host_idx = route.host_blocks(buf, blens)
+    dev_idx = np.setdiff1d(np.arange(len(blens)), host_idx)
+
+    # The write path with encoder="array": routed as with K2, the array
+    # encoder's calls recorded, K2 not launched.
+    calls = []
+    encode = encode_array.encode_blocks
+
+    def recorded(blocks, lens, min_profit=None):
+        calls.append((blocks.shape[0], blocks.device.type))
+        return encode(blocks, lens, min_profit)
+
+    encode_array.encode_blocks = recorded
+    try:
+        cuda_encode.launches = 0
+        frame = snappy_tpu_torch.compress_framed(raw_main, device=dev, encoder="array")
+    finally:
+        encode_array.encode_blocks = encode
+    check(cuda_encode.launches == 0, f"encoder='array' launched K2 {cuda_encode.launches} times")
+    check(calls == [(len(dev_idx), dev.type)], f"the array encoder's calls {calls}, expected one of "
+          f"{len(dev_idx)} rows on {dev.type}")
+    check(snappy_tpu_torch.uncompress_framed(frame, device=dev) == raw_main,
+          "the array encoder's frame does not decode through uncompress_framed")
+    check(nat.uncompress(framed.frame_to_raw(frame)) == raw_main, "the array encoder's frame does not decode natively")
+
+    # The card's rows against the CPU's: the whole first pass of the mix,
+    # every corpus file in it.
+    d_blocks, d_blens = to_device(buf[dev_idx], dev), to_device(blens[dev_idx], dev)
+    out, olens = encode_array.encode_blocks(d_blocks, d_blens)
+    out_np, olens_np = out.cpu().numpy(), olens.cpu().numpy()
+    streams = nat.compress_rows(buf, blens, np.arange(len(blens)))
+    for j, i in enumerate(dev_idx.tolist()):
+        streams[i] = out_np[j, : olens_np[j]].tobytes()
+    raws = [raw_main[i * BLOCK : (i + 1) * BLOCK] for i in range(len(blens))]
+    check(framed.build_frame(streams, raws, len(raw_main)) == frame,
+          "the array frame is not the card's rows and the routed blocks' native streams")
+    first = -(-sum(len(read(n)) for n in CORPUS) // BLOCK)
+    c_out, c_olens = encode_array.encode_blocks(to_device(buf[:first], dev), to_device(blens[:first], dev))
+    p_out, p_olens = encode_array.encode_blocks(torch.from_numpy(buf[:first]), torch.from_numpy(blens[:first]))
+    check(torch.equal(c_olens.cpu(), p_olens) and torch.equal(c_out.cpu(), p_out),
+          f"the card's rows differ from the CPU's on the first {first} blocks")
+    gate = "libsnappy not installed: its gate did not run"
+    dev_bytes = int(olens_np.sum())
+    if libsnappy.available():
+        hdr = bytes(varint.encode32(BLOCK))
+        for j in range(0, len(dev_idx), 8):
+            i = int(dev_idx[j])
+            check(libsnappy.uncompress(bytes(varint.encode32(int(blens[i]))) + streams[i]) == raws[i],
+                  f"array stream {i} does not decode under libsnappy")
+        ls = sum(len(libsnappy.compress(raws[i])) - len(hdr) for i in dev_idx.tolist())
+        check(dev_bytes <= ls, f"the array encoder's rows {dev_bytes} bytes > libsnappy {ls}")
+        gate = f"libsnappy gate ran: every 8th device stream decodes under it; {dev_bytes} bytes <= libsnappy {ls}"
+
+    # Raw streams of a 4 MiB slice, on the card and the CPU, and its frames
+    # over meshes of 1 and 4 shards.
+    part = raw_main[: 4 << 20]
+    raw_c = snappy_tpu_torch.compress(part, backend="torch", device=dev, encoder="array")
+    check(raw_c == snappy_tpu_torch.compress(part, backend="torch", device="cpu", encoder="array"),
+          "raw compress(encoder='array') differs between the card and the CPU")
+    check(nat.uncompress(raw_c) == part, "raw compress(encoder='array') does not decode")
+    mesh_frames = [snappy_tpu_torch.compress_framed(part, mesh=distributed.mesh_1d([dev] * k), encoder="array")
+                   for k in (1, 4)]
+    check(mesh_frames[0] == mesh_frames[1], "the array encoder's 4-shard frame differs from its 1-shard frame")
+    check(snappy_tpu_torch.uncompress_framed(mesh_frames[1], device=dev) == part, "the mesh frame does not decode")
+    print(f"[15 array encoder] compress_framed(encoder='array') of the {len(raw_main) / 2**20:g} MiB mix: "
+          f"{len(host_idx)} blocks routed to the host, {len(dev_idx)} to the array encoder in one call on {dev.type}, "
+          f"K2 not launched; the frame decodes (K1, native) and is the rows of a direct call; the first {first} "
+          f"blocks (every corpus file) identical on the card and the CPU; {gate}; raw compress of 4 MiB "
+          f"identical on the card and the CPU and decodes; 4-shard mesh frame equals the 1-shard frame", flush=True)
+
+    # Times: the array encoder and K2 on the same rows, the array encoder's
+    # stages in one call, whole framed calls with each encoder.
+    args = (d_blocks, d_blens, 2)
+    array_ms = time_device_fn(encode_array.encode_blocks, args, iters=5, warmup=1) * 1e3
+    k2_ms = time_device_fn(cuda_encode.encode_blocks, args, iters=5, warmup=1) * 1e3
+    k2_bytes = int(cuda_encode.encode_blocks(*args)[1].sum())
+    split = profile_array.split(d_blocks, d_blens)
+    stage_ms = split["stage_ms"]
+    stage_ms["rest"] = split["call_ms"] - sum(stage_ms[k] for k in ("candidates", "extension", "parse", "emission"))
+    framed_s = {}
+    for enc in ("array", "kernel"):
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            again = snappy_tpu_torch.compress_framed(raw_main, device=dev, encoder=enc)
+            runs.append(time.perf_counter() - t0)
+            check(again == (frame if enc == "array" else kernel_frame), f"repeat compress_framed({enc}) changed")
+        framed_s[enc] = runs
+    native_frame = len(framed.build_frame(nat.compress_rows(buf, blens, np.arange(len(blens))), raws, len(raw_main)))
+    peak = torch.cuda.max_memory_allocated(dev)
+    chunk = encode_array.rows_per_chunk(buf.shape[1], dev)
+    record = {
+        "card": card,
+        "rows": len(dev_idx),
+        "host_rows": len(host_idx),
+        "rows_a_chunk": chunk,
+        "ms": array_ms,
+        "k2_ms": k2_ms,
+        "stage_ms": stage_ms,
+        "stage_call_ms": split["call_ms"],
+        "end_loop_rounds": split["rounds"],
+        "end_loop_lane_rounds": sum(split["live_lanes"]),
+        "rows_bytes": {"array": dev_bytes, "kernel": k2_bytes},
+        "frame_bytes": {"array": len(frame), "kernel": len(kernel_frame), "native": native_frame},
+        "compress_framed_s": framed_s,
+        "max_memory_allocated": peak,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print(f"[15 array encoder] on {card}: {len(dev_idx)} rows ({chunk} a chunk): array encoder {array_ms:.4f} ms, "
+          f"K2 {k2_ms:.4f} ms (device time, median of 5); one call by stage (ms; links, doubling and end_loop are "
+          f"steps of the extension) { {k: round(v, 4) for k, v in stage_ms.items()} } of {split['call_ms']:.4f}, "
+          f"the end-lane loop {split['rounds']} rounds and {sum(split['live_lanes'])} lane-rounds; rows {dev_bytes} "
+          f"bytes against K2's "
+          f"{k2_bytes}; frames: array {len(frame)}, K2 {len(kernel_frame)}, native {native_frame} bytes; whole "
+          f"compress_framed min array {min(framed_s['array']):.4f} s, K2 {min(framed_s['kernel']):.4f} s; "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB; phase {record['phase_s']:.1f} s", flush=True)
+    return record
 
 
 def main() -> int:
@@ -1032,6 +1196,9 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_launches = mesh_phase(card, raw_main, frame_w, dev)
     print(f"[14 mesh] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 15. the array encoder
+    print(json.dumps({"array_encoder": array_phase(card, raw_main, frame_w, dev)}), flush=True)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

@@ -10,12 +10,16 @@ A/B in ``chip_smoke.py`` and no entry point selects it. Each kernel has a
 plain torch version of the same function for CPU tensors. Framed calls
 shard their blocks over a mesh of devices with ``mesh=``, and
 ``parallel/multihost.py`` writes and reads one frame from several processes.
+The write paths take ``encoder="array"`` for the JAX package's off-TPU
+parse, ``ops/encode_array.py``, in torch on either device, in place of the
+encode kernel (``encoder="kernel"``, the default).
 
 Public API:
-  - compress(data, backend=, device=) -> bytes    raw snappy stream (backends
-                                                  "native", "torch", "cpu")
+  - compress(data, backend=, device=, encoder=) -> bytes  raw snappy stream
+                                                  (backends "native",
+                                                  "torch", "cpu")
   - uncompress(data, backend=, device=) -> bytes  decode a raw stream
-  - compress_framed(data, config=, device=, mesh=)  framed stream
+  - compress_framed(data, config=, device=, mesh=, encoder=)  framed stream
   - uncompress_framed(frame, device=, mesh=)      decode a framed stream
   - mesh_1d(devices=None) -> Mesh                 the devices a framed call
                                                   shards its blocks over

@@ -24,13 +24,14 @@ def _host_codec(backend: str | None):
     raise ValueError(f"unknown backend {backend!r}")
 
 
-def compress(data, backend: str | None = None, device="cuda") -> bytes:
-    """Compress ``data`` into a raw Snappy stream. ``device`` applies to
-    the "torch" backend."""
+def compress(data, backend: str | None = None, device="cuda", encoder: str = "kernel") -> bytes:
+    """Compress ``data`` into a raw Snappy stream. ``device`` and
+    ``encoder`` (the block encoder: "kernel" or "array", see
+    ``ops/select.py``) apply to the "torch" backend."""
     if backend == "torch":
         from .ops import host
 
-        return host.compress(data, device=device)
+        return host.compress(data, device=device, encoder=encoder)
     return _host_codec(backend).compress(data)
 
 

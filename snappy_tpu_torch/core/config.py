@@ -2,8 +2,9 @@
 
 The same fields and defaults as ``snappy_tpu.core.config``, so that a frame
 written under one package's ``FrameConfig`` reads under the other's.
-``min_profit`` sets the block encoder's take threshold; ``max_match_scan``
-is carried for parity and not consulted.
+``min_profit`` sets the encode kernel's take threshold; the default
+config's ``max_match_scan`` caps the array encoder's match extension
+(``ops/encode_array.py``), as in the reference.
 """
 
 from __future__ import annotations

@@ -1,11 +1,12 @@
 """Host driver of raw-stream encode and decode on one device.
 
 ``compress`` is the counterpart of ``snappy_tpu/ops/encode_xla.py::
-compress_host`` with the Pallas block encoder: the stream is cut into
-64 KiB blocks, routed 16 blocks at a time as the reference routes them, the
-device blocks of all chunks are encoded in one launch while the host
-encodes the routed ones, and the block streams are joined under the varint
-header.
+compress_host``: the stream is cut into 64 KiB blocks, routed 16 blocks at
+a time as the reference routes them, the device blocks of all chunks are
+encoded in one call of the block encoder (K2, the reference's pick on a
+TPU, or with ``encoder="array"`` the array encoder, its pick elsewhere)
+while the host encodes the routed ones, and the block streams are joined
+under the varint header.
 
 ``uncompress`` is the counterpart of ``snappy_tpu/ops/host.py:40-133``. The
 host parses the varint header, the native ``scan_blocks`` cuts the tag
@@ -33,7 +34,7 @@ from ..utils.profiling import trace_annotation
 from . import decode_torch
 from .decode_torch import COMP_PAD
 from .encode_torch import ENC_PAD
-from .select import block_decoder
+from .select import block_decoder, check_encoder
 
 _I32_MAX = (1 << 31) - 1
 # Blocks routed together by the raw encoder, as the reference's
@@ -141,11 +142,12 @@ def _uncompress_blocked(body: np.ndarray, starts: np.ndarray, oplens: np.ndarray
     return out[keep].tobytes()
 
 
-def compress(data, device="cuda") -> bytes:
+def compress(data, device="cuda", encoder: str = "kernel") -> bytes:
     """Compress into a raw Snappy stream, encoding the compressible blocks
-    with the block encoder on ``device``."""
+    with the block encoder ``encoder`` (``select.ENCODERS``) on ``device``."""
     from . import route  # route builds on to_device above
 
+    check_encoder(encoder)
     inp = as_u8(data)
     n = len(inp)
     if n > 0xFFFFFFFF:
@@ -159,5 +161,5 @@ def compress(data, device="cuda") -> bytes:
         host_idx = np.concatenate(
             [c + route.host_blocks(buf[c : c + k], blens[c : c + k]) for c in range(0, len(blens), k)]
         )
-        ticket = route.dispatch_routed(buf, blens, host_idx, device, DEFAULT_MIN_PROFIT)
+        ticket = route.dispatch_routed(buf, blens, host_idx, device, DEFAULT_MIN_PROFIT, encoder)
         return header + b"".join(route.assemble_routed(ticket))

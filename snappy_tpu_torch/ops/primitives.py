@@ -1,7 +1,9 @@
-"""Tensor building blocks of the plain block decoder (ops/decode_torch.py).
+"""Tensor building blocks of the plain block decoder (ops/decode_torch.py)
+and the array encoder (ops/encode_array.py).
 
 The tag-decode LUTs as tensors, a little-endian 4-byte load at every byte
-position, and two small helpers. Plain torch on any device.
+position, the pointer-doubling orbit ``reach_from`` and two small helpers.
+Plain torch on any device.
 """
 
 from __future__ import annotations
@@ -39,3 +41,30 @@ def le32_at_every_position(padded_u8: torch.Tensor) -> torch.Tensor:
 
 def exclusive_cumsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.cumsum(x, dim=dim) - x
+
+
+def reach_from(start, nxt: torch.Tensor, n: int, rounds: int | None = None) -> torch.Tensor:
+    """Positions reachable from ``start`` by iterating i -> nxt[i], per row.
+
+    The counterpart of ``snappy_tpu/ops/primitives.py::reach_from``, batched
+    over the leading dimensions of ``nxt`` ([..., n]). ``nxt`` must be
+    strictly increasing (nxt[i] > i) with values in [0, n], where n is the
+    absorbing sentinel; ``start`` is an int or a tensor of the leading
+    shape. Returns bool[..., n].
+
+    Pointer doubling: after round k, ``reach`` holds every chain position at
+    distance < 2**k and ``jump`` is the 2**k-step map, so ceil(log2(n + 1))
+    rounds cover any chain. Each round's scatter reads the ``reach`` of
+    the round before (``scatter_reduce`` into a copy, as ``.at[].max``).
+    """
+    if rounds is None:
+        rounds = ceil_log2(n + 1)
+    dev = nxt.device
+    sentinel = torch.full((*nxt.shape[:-1], 1), n, dtype=torch.int64, device=dev)
+    jump = torch.cat([nxt.to(torch.int64), sentinel], dim=-1)
+    start = torch.as_tensor(start, dtype=torch.int64, device=dev).unsqueeze(-1)
+    reach = (torch.arange(n + 1, device=dev) == start).to(torch.int32).expand_as(jump).contiguous()
+    for _ in range(rounds):
+        reach = reach.scatter_reduce(-1, jump, reach, "amax")
+        jump = jump.gather(-1, jump)
+    return reach[..., :n] > 0

@@ -90,11 +90,13 @@ def native_streams_for(buf: np.ndarray, blens: np.ndarray, host_idx) -> dict[int
     return streams
 
 
-def dispatch_routed(buf: np.ndarray, blens: np.ndarray, host_idx, device, min_profit: int):
+def dispatch_routed(buf: np.ndarray, blens: np.ndarray, host_idx, device, min_profit: int, encoder: str = "kernel"):
     """Queue the encode of the blocks (buf, blens): the rows of
-    ``host_idx`` on the host, the others with the block encoder on
-    ``device``. The device launch is queued before the host encoders run.
-    Returns a ticket for :func:`assemble_routed`."""
+    ``host_idx`` on the host, the others with the block encoder
+    ``encoder`` (``select.ENCODERS``) on ``device``. The device launch is
+    queued before the host encoders run. Returns a ticket for
+    :func:`assemble_routed`."""
+    encode = block_encoder(device, encoder)
     n_blocks = len(blens)
     dev_idx = np.setdiff1d(np.arange(n_blocks), host_idx)
     dev = None
@@ -106,7 +108,7 @@ def dispatch_routed(buf: np.ndarray, blens: np.ndarray, host_idx, device, min_pr
             if len(dev_idx) < n_blocks:
                 pick = to_device(dev_idx, device)
                 blocks, lens = blocks[pick], lens[pick]
-            dev = block_encoder(device)(blocks, lens, min_profit)
+            dev = encode(blocks, lens, min_profit)
     with trace_annotation("route.native_streams"):
         native = native_streams_for(buf, blens, host_idx)
     return dev, dev_idx, native, n_blocks

@@ -5,13 +5,21 @@ device the caller names, never a probe of the platform, and is made in one
 place: each kernel's wrapper launches its kernel for a CUDA tensor and runs
 its plain version for a CPU tensor, with no fallback from one to the
 other. Here a device that neither takes is refused before any data moves.
+
+Two block encoders write different parses, both valid Snappy: ``"kernel"``
+is K2 (the CUDA kernel, or its plain version on the CPU), the reference's
+TPU encoder; ``"array"`` is ``encode_array.encode_blocks``, the reference's
+encoder wherever there is no TPU, in torch on either device.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import cuda_decode, cuda_encode
+from . import cuda_decode, cuda_encode, encode_array
+
+#: the block encoders by name, for ``encoder=`` of the write paths
+ENCODERS = ("kernel", "array")
 
 
 def _check_device(device, what: str) -> None:
@@ -26,9 +34,17 @@ def block_decoder(device):
     return cuda_decode.decode_blocks
 
 
-def block_encoder(device):
+def check_encoder(encoder: str) -> None:
+    """Raise ValueError unless ``encoder`` names a block encoder."""
+    if encoder not in ENCODERS:
+        raise ValueError(f"unknown block encoder {encoder!r}; expected one of {ENCODERS}")
+
+
+def block_encoder(device, encoder: str = "kernel"):
     """(blocks u8[B, W], blens i32[B], min_profit) ->
-    (out u8[B, BLOCK_MAX_OUT], olens i32[B]) for ``device``. Any block size
-    in [1, 65536] is taken."""
+    (out u8[B, BLOCK_MAX_OUT], olens i32[B]) for ``device``, by the block
+    encoder ``encoder`` names. Any block size in [1, 65536] is taken; the
+    array encoder does not read min_profit."""
+    check_encoder(encoder)
     _check_device(device, "encoder")
-    return cuda_encode.encode_blocks
+    return encode_array.encode_blocks if encoder == "array" else cuda_encode.encode_blocks

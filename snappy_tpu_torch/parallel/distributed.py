@@ -105,8 +105,10 @@ def compress_blocks(
     mesh: Mesh,
     gather: bool = False,
     min_profit: int | None = None,
+    encoder: str = "kernel",
 ):
-    """Encode a uint8[NB, block_size + ENC_PAD] batch sharded over ``mesh``.
+    """Encode a uint8[NB, block_size + ENC_PAD] batch sharded over ``mesh``
+    with the block encoder ``encoder`` (``select.ENCODERS``).
 
     NB must be a multiple of the mesh size (see pad_block_count). Returns
     (outs, olens), one entry a device in mesh order: its shard's
@@ -118,7 +120,8 @@ def compress_blocks(
     mp = DEFAULT_MIN_PROFIT if min_profit is None else min_profit
     outs, olens = [], []
     for dev, (lo, hi) in zip(mesh.devices, _shards(mesh, len(blocks))):
-        out, olen = select.block_encoder(dev)(to_device(blocks[lo:hi], dev), to_device(blens[lo:hi], dev), mp)
+        encode = select.block_encoder(dev, encoder)
+        out, olen = encode(to_device(blocks[lo:hi], dev), to_device(blens[lo:hi], dev), mp)
         outs.append(out)
         olens.append(olen)
     if gather:

@@ -29,7 +29,7 @@ from ..core.config import DEFAULT_FRAME_CONFIG, FrameConfig
 from ..core.errors import CorruptInputError
 from ..ops import route
 from ..ops.host import as_u8, blockify, pack_rows, to_device
-from ..ops.select import block_decoder
+from ..ops.select import block_decoder, check_encoder
 from ..utils.profiling import trace_annotation
 from . import distributed, framed
 
@@ -38,10 +38,13 @@ from . import distributed, framed
 MAX_TAG_BYTES_PER_BYTE = 6
 
 
-def dispatch_compress(data, config: FrameConfig = DEFAULT_FRAME_CONFIG, device="cuda", mesh=None):
-    """Launch the encode of every block of ``data`` on ``device`` (or over
-    ``mesh``); encode the routed blocks and take every block's crc on the
-    host meanwhile. Returns a ticket for ``assemble_compress``."""
+def dispatch_compress(data, config: FrameConfig = DEFAULT_FRAME_CONFIG, device="cuda", mesh=None,
+                      encoder: str = "kernel"):
+    """Launch the encode of every block of ``data`` with the block encoder
+    ``encoder`` (``select.ENCODERS``) on ``device`` (or over ``mesh``);
+    encode the routed blocks and take every block's crc on the host
+    meanwhile. Returns a ticket for ``assemble_compress``."""
+    check_encoder(encoder)
     bs = config.block_size
     if not 1 <= bs <= 1 << 16:
         raise ValueError("block_size must be in [1, 65536]")
@@ -52,12 +55,14 @@ def dispatch_compress(data, config: FrameConfig = DEFAULT_FRAME_CONFIG, device="
         if mesh is None:
             buf, blens = blockify(inp, bs)
             kind = "routed"
-            part = route.dispatch_routed(buf, blens, route.host_blocks(buf, blens), device, config.min_profit)
+            part = route.dispatch_routed(buf, blens, route.host_blocks(buf, blens), device, config.min_profit,
+                                         encoder)
         else:
             n_blocks = -(-len(inp) // bs)
             buf, blens = blockify(inp, bs, distributed.pad_block_count(n_blocks, mesh.size))
             kind = "mesh"
-            part = (distributed.compress_blocks(buf, blens, mesh, min_profit=config.min_profit), n_blocks)
+            part = (distributed.compress_blocks(buf, blens, mesh, min_profit=config.min_profit, encoder=encoder),
+                    n_blocks)
         crcs = [zlib.crc32(inp[i : i + bs]) for i in range(0, len(inp), bs)] if config.checksum else None
     return (inp, config, kind, part, crcs)
 
@@ -83,10 +88,11 @@ def assemble_compress(ticket) -> bytes:
         return framed.build_frame_header([len(s) for s in streams], crcs, len(inp), config) + b"".join(streams)
 
 
-def compress_framed(data, config: FrameConfig = DEFAULT_FRAME_CONFIG, device="cuda", mesh=None) -> bytes:
+def compress_framed(data, config: FrameConfig = DEFAULT_FRAME_CONFIG, device="cuda", mesh=None,
+                    encoder: str = "kernel") -> bytes:
     """Compress into the framed container, block-parallel on ``device`` or
-    sharded over ``mesh``."""
-    return assemble_compress(dispatch_compress(data, config, device, mesh))
+    sharded over ``mesh``, with the block encoder ``encoder``."""
+    return assemble_compress(dispatch_compress(data, config, device, mesh, encoder))
 
 
 def block_batch(buf: np.ndarray, starts: np.ndarray, clens: np.ndarray, ulens: np.ndarray, block_size: int,

@@ -49,6 +49,7 @@ from ..core.config import DEFAULT_FRAME_CONFIG, FrameConfig
 from ..core.errors import CorruptInputError
 from ..cpu import oracle
 from ..ops.host import blockify
+from ..ops.select import check_encoder
 from . import distributed, framed, host
 
 
@@ -136,10 +137,13 @@ def compress_framed(
     out_path: str,
     mesh: distributed.Mesh | None = None,
     config: FrameConfig = DEFAULT_FRAME_CONFIG,
+    encoder: str = "kernel",
 ) -> int:
     """Multi-host framed compress: every process encodes its disjoint block
-    range of ``in_path`` and pwrites its frame slice of ``out_path``.
-    Returns the frame size (the same on every process)."""
+    range of ``in_path`` with the block encoder ``encoder`` and pwrites its
+    frame slice of ``out_path``. Returns the frame size (the same on every
+    process)."""
+    check_encoder(encoder)
     mesh = global_mesh() if mesh is None else mesh
     bs = config.block_size
     total_len = os.path.getsize(in_path)
@@ -152,7 +156,8 @@ def compress_framed(
         f.seek(lo * bs)
         local = np.frombuffer(f.read((hi - lo) * bs), np.uint8)
     buf, blens = blockify(local, bs, hi - lo)
-    sharded = distributed.compress_blocks(buf, blens, _local_mesh(mesh), min_profit=config.min_profit)
+    sharded = distributed.compress_blocks(buf, blens, _local_mesh(mesh), min_profit=config.min_profit,
+                                          encoder=encoder)
     n_local = max(0, min(hi, n_blocks) - lo)
     local_crcs = np.zeros(hi - lo, np.uint32)
     for i in range(n_local):

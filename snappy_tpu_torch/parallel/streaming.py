@@ -32,6 +32,7 @@ import numpy as np
 
 from ..core.config import DEFAULT_FRAME_CONFIG, FrameConfig
 from ..core.errors import CorruptInputError
+from ..ops.select import check_encoder
 from . import framed
 from . import host as _host
 
@@ -98,10 +99,12 @@ def compress_stream(
     device="cuda",
     blocks_per_frame: int = DEFAULT_BLOCKS_PER_FRAME,
     mesh=None,
+    encoder: str = "kernel",
 ) -> int:
     """Compress ``src`` into a sequence of frames on ``dst``, coded on
-    ``device`` (or sharded over ``mesh``, see ``host.py``). Returns the
-    compressed bytes written."""
+    ``device`` (or sharded over ``mesh``, see ``host.py``) with the block
+    encoder ``encoder``. Returns the compressed bytes written."""
+    check_encoder(encoder)
     chunk_bytes = blocks_per_frame * config.block_size
     total = 0
     pending: deque = deque()
@@ -110,7 +113,8 @@ def compress_stream(
         if not eof:
             chunk = src.read(chunk_bytes)
             if chunk:
-                pending.append(_host.dispatch_compress(chunk, config=config, device=device, mesh=mesh))
+                pending.append(_host.dispatch_compress(chunk, config=config, device=device, mesh=mesh,
+                                                       encoder=encoder))
             else:
                 eof = True
         while pending and (len(pending) > PIPELINE_DEPTH or eof):
@@ -235,11 +239,14 @@ def resume_compress_file(
     device="cuda",
     blocks_per_frame: int = DEFAULT_BLOCKS_PER_FRAME,
     mesh=None,
+    encoder: str = "kernel",
 ) -> int:
     """Compress ``in_path`` to a frame sequence at ``out_path`` on
-    ``device`` (or over ``mesh``), resuming from the last durable frame
-    where an earlier run died mid-stream. Returns the compressed size.
-    Restartable any number of times; a first run is the resume of nothing."""
+    ``device`` (or over ``mesh``) with the block encoder ``encoder``,
+    resuming from the last durable frame where an earlier run died
+    mid-stream. Returns the compressed size. Restartable any number of
+    times; a first run is the resume of nothing."""
+    check_encoder(encoder)
     durable, _, covered = scan_durable_frames(out_path)
     chunk = blocks_per_frame * config.block_size
     if covered % chunk:
@@ -259,7 +266,8 @@ def resume_compress_file(
         with open(out_path, "r+b") as dst:
             dst.seek(durable)
             written = compress_stream(
-                src, dst, config=config, device=device, blocks_per_frame=blocks_per_frame, mesh=mesh
+                src, dst, config=config, device=device, blocks_per_frame=blocks_per_frame, mesh=mesh,
+                encoder=encoder,
             )
     return durable + written
 

@@ -1,13 +1,15 @@
 """One process of a multi-host framed run.
 
     python -m snappy_tpu_torch.tools.multihost_run COORDINATOR NPROCS RANK IN FRAME OUT
-        [--device cuda|cpu] [--local-shards K] [--decode-only] [--timeout SECONDS]
+        [--device cuda|cpu] [--local-shards K] [--decode-only] [--encoder kernel|array]
+        [--timeout SECONDS]
 
 Start NPROCS of these, ranks 0 to NPROCS-1, with the same COORDINATOR
 (``host:port``, where rank 0 listens). Each joins the gloo process group
 (``parallel/multihost.py::initialize``), builds the global mesh of K
 shards a process, compresses IN into the frame FRAME with
-``multihost.compress_framed`` and decompresses FRAME into OUT with
+``multihost.compress_framed`` (with the block encoder ``--encoder``, K2 by
+default) and decompresses FRAME into OUT with
 ``multihost.uncompress_framed``; with ``--decode-only`` FRAME must exist
 and only the decompress runs. Every process must see the same files.
 
@@ -32,7 +34,7 @@ import time
 import torch
 import torch.distributed as dist
 
-from ..ops import cuda_decode, cuda_encode, kernels
+from ..ops import cuda_decode, cuda_encode, kernels, select
 from ..parallel import multihost
 
 
@@ -48,6 +50,7 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--local-shards", type=int, default=1)
     p.add_argument("--decode-only", action="store_true")
+    p.add_argument("--encoder", default="kernel", choices=select.ENCODERS, help="the block encoder")
     p.add_argument("--timeout", type=float, default=300.0, help="seconds a collective may wait")
     args = p.parse_args(argv)
 
@@ -69,7 +72,8 @@ def main(argv=None) -> int:
         cuda_encode.launches = cuda_decode.launches = 0
         if not args.decode_only:
             t0 = time.perf_counter()
-            rec["frame_bytes"] = multihost.compress_framed(args.in_path, args.frame_path, mesh=mesh)
+            rec["frame_bytes"] = multihost.compress_framed(args.in_path, args.frame_path, mesh=mesh,
+                                                           encoder=args.encoder)
             rec["compress_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         rec["bytes"] = multihost.uncompress_framed(args.frame_path, args.out_path, mesh=mesh)

@@ -100,7 +100,7 @@ def timed_stages(device, spans: dict):
 
     def timing_launch(span, select):
         # block_encoder and block_decoder return the wrapper that launches.
-        return lambda device: timing(span, select(device))
+        return lambda device, *a: timing(span, select(device, *a))
 
     try:
         for mod, name, span in targets:
