@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive snappy_tpu_torch's read and write paths, the decode A/B, the probes, the streaming pipeline, the mesh and the array encoder once on one CUDA GPU (Hopper, sm_90).
+"""Drive snappy_tpu_torch's read and write paths, the decode A/B, the probes, the streaming pipeline, the mesh, the array encoder and the bench once on one CUDA GPU (Hopper, sm_90).
 
     python3 chip_smoke.py
 
@@ -127,12 +127,27 @@ non-zero:
               encoder (host clock, min of 3), the rows', frames' and native
               frame's bytes, max_memory_allocated and the phase's seconds,
               and a {"array_encoder": {...}} line of them
+ 16. bench    python -m snappy_tpu_torch.tools.bench at its defaults in a
+              subprocess (BENCH_* unset): its headline line's keys, every
+              stage of the card's branch present, the libsnappy gates run or
+              said to be skipped (libsnappy not installed), 3 rounds of each
+              kernel in decode_own and 2 in decode_foreign, the scaling
+              model over 4 shards of one card, K1, K2 and K3 launched; a line
+              a stage with its GB/s and spread and a {"bench": {...}} line
+              of its records; then tools/run_corpus.run once (a line a file
+              and the markdown table, every file's K2 and array streams
+              decoded bit-exact by K1); then torch.profiler through
+              utils/profiling.profile_to around one uncompress_framed of
+              phase 8's frame: one trace file naming K1's annotation
+              (framed.dispatch_uncompress), with its kernel events counted
 
 Before the last line it prints the card's `nvidia-smi` name and power limit
 and one JSON line {"kernels": [...]} with each kernel's launches on its main
-path, its launches on phase 13's stream path (K1 and K2: "stream_launches")
-and on phase 14's 4-shard mesh and two ranks ("mesh_launches",
-"multihost_launches", the ranks' sum),
+path, its launches on phase 13's stream path (K1 and K2: "stream_launches"),
+on phase 14's 4-shard mesh and two ranks ("mesh_launches",
+"multihost_launches", the ranks' sum) and over phase 16 (K1, K2 and K3:
+"bench_launches", the bench's own count and run_corpus's and the
+profiled call's),
 its largest difference from the plain version, its time beside the
 plain version's at the main path's shape, and its bound: the larger of the
 bytes it must move (inputs read once, outputs written once, as this run's
@@ -193,6 +208,13 @@ PROBE_KERNELS = [
     ("drain", "probe_drain", "benchmarks/exp_vector_walk.py:389"),
     ("scalar_loop", "probe_scalar_loop", "benchmarks/exp_vector_walk.py:515"),
     ("when_drain", "probe_when_drain", "benchmarks/exp_vector_walk.py:597"),
+]
+# What phase 16 holds the bench's output to: bench.py's headline keys, and
+# the stages of its TPU branch.
+BENCH_HEADLINE = ["metric", "value", "unit", "vs_baseline", "vs_target", "vs_r4_same_run"]
+BENCH_STAGES = [
+    "ratio_device", "encode", "decode_own", "decode_own_r4control", "decode_own_autotuned", "decode_foreign",
+    "decode_windowed_fallback", "large_device", "stream_large", "scaling_model",
 ]
 # The files of the per-file density gate (tests/test_tpu_compiled.py).
 DENSITY_FILES = [
@@ -690,6 +712,72 @@ def array_phase(card: str, raw_main: bytes, kernel_frame: bytes, dev) -> dict:
           f"compress_framed min array {min(framed_s['array']):.4f} s, K2 {min(framed_s['kernel']):.4f} s; "
           f"max_memory_allocated {peak / 2**30:.3f} GiB; phase {record['phase_s']:.1f} s", flush=True)
     return record
+
+
+def bench_phase(card: str, raw_main: bytes, frame: bytes, dev) -> dict[str, int]:
+    """Phase 16: the port's bench at its defaults in a subprocess, the
+    per-file corpus table once, and a profiler trace of one
+    uncompress_framed of ``frame`` (``raw_main``'s). Returns K1's, K2's and
+    K3's launches over the phase."""
+    import snappy_tpu_torch
+    from snappy_tpu_torch.tools import bench, run_corpus
+    from snappy_tpu_torch.utils import profile_to
+
+    modules = bench.KERNEL_MODULES
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "snappy_tpu_torch.tools.bench"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=600)
+    t_bench = time.perf_counter() - t0
+    check(run.returncode == 0, f"the bench exited {run.returncode}: {run.stderr[-3000:]}")
+    out = run.stdout.strip().splitlines()
+    report, headline = json.loads(out[-2]), json.loads(out[-1])
+    check(all(k in headline for k in BENCH_HEADLINE) and headline["metric"] == "device_decompress_throughput"
+          and headline["unit"] == "GB/s/chip", f"the bench's headline {headline}")
+    recs = {r["stage"]: r for r in report["stages"]}
+    check(all(k in recs for k in BENCH_STAGES), f"the bench's stages {list(recs)}")
+    gates = recs["ratio_device"]["libsnappy_gates"]
+    check(gates == "ran" or (gates == "skipped: libsnappy not installed" and "ratio_libsnappy" not in recs),
+          f"the bench's libsnappy gates: {gates}")
+    check([len(v) for v in recs["decode_own"]["rounds_ms"].values()] == [3, 3]
+          and [len(v) for v in recs["decode_foreign"]["rounds_ms"].values()] == [2, 2],
+          "the bench's decode rounds did not all run")
+    check(recs["scaling_model"]["shards"] == "4 of one card", f"scaling shards {recs['scaling_model']['shards']}")
+    bench_launches = report["run"]["launches"]
+    check(all(bench_launches[k] > 0 for k in modules), f"the bench's launches {bench_launches}")
+    print(f"[16 bench] python -m snappy_tpu_torch.tools.bench at its defaults on {report['run']['card']}: "
+          f"{t_bench:.1f} s with the process's start; libsnappy gates {gates}; launches {bench_launches}; "
+          f"headline {json.dumps(headline)}", flush=True)
+    for r in report["stages"]:
+        rates = {k: v for k, v in r.items() if "gbps" in k or k in ("compressed_ratio", "ratio", "collective_share")}
+        spread = r["timing"]["spread"] if "timing" in r else None
+        print(f"[16 bench] {r['stage']}: {rates}" + (f", spread {spread:.4f}" if spread is not None else ""),
+              flush=True)
+    print(json.dumps({"bench": {"run": report["run"], "stages": report["stages"], "headline": headline}}), flush=True)
+
+    before = {k: m.launches for k, m in modules.items()}
+    t0 = time.perf_counter()
+    rows = run_corpus.run(dev, iters=3)
+    print(run_corpus.table(rows), flush=True)
+    print(f"[16 bench] tools/run_corpus.run on {card}: {len(rows)} files, each file's K2 and array streams "
+          f"decoded bit-exact by K1; {time.perf_counter() - t0:.1f} s", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile_to(tmp):
+            got = snappy_tpu_torch.uncompress_framed(frame, device=dev)
+        check(got == raw_main, "the profiled uncompress_framed is not bit-exact")
+        traces = os.listdir(tmp)
+        check(len(traces) == 1, f"profile_to wrote {traces}")
+        with open(os.path.join(tmp, traces[0])) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name") for e in events}
+        check("framed.dispatch_uncompress" in names, "the trace does not name K1's annotation")
+        kernel_events = [e for e in events if e.get("cat") == "kernel"]
+        k1_us = sum(e.get("dur", 0) for e in kernel_events if "decode_blocks_kernel" in e.get("name", ""))
+        print(f"[16 bench] profile_to around one uncompress_framed of the {len(raw_main) / 2**20:g} MiB frame: "
+              f"{traces[0]} ({os.path.getsize(os.path.join(tmp, traces[0]))} bytes, {len(events)} events) names "
+              f"framed.dispatch_uncompress; {len(kernel_events)} kernel events, K1's {k1_us} us", flush=True)
+    return {k: bench_launches[k] + m.launches - before[k] for k, m in modules.items()}
 
 
 def main() -> int:
@@ -1200,6 +1288,11 @@ def main() -> int:
     # 15. the array encoder
     print(json.dumps({"array_encoder": array_phase(card, raw_main, frame_w, dev)}), flush=True)
 
+    # 16. the bench
+    t0 = time.perf_counter()
+    bench_launches = bench_phase(card, raw_main, frame_w, dev)
+    print(f"[16 bench] launches over the phase {bench_launches}; phase {time.perf_counter() - t0:.1f} s", flush=True)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "decode_blocks",
@@ -1210,6 +1303,7 @@ def main() -> int:
         "stream_launches": stream_launches["decode_blocks"],
         "mesh_launches": mesh_launches["decode_blocks"],
         "multihost_launches": mesh_launches["multihost_decode_blocks"],
+        "bench_launches": bench_launches["decode_blocks"],
         "max_abs_err": max(err3, err4),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -1225,6 +1319,7 @@ def main() -> int:
         "stream_launches": stream_launches["encode_blocks"],
         "mesh_launches": mesh_launches["encode_blocks"],
         "multihost_launches": mesh_launches["multihost_encode_blocks"],
+        "bench_launches": bench_launches["encode_blocks"],
         "max_abs_err": max(err7, err8),
         "ms": enc_ms,
         "plain_ms": enc_plain_ms,
@@ -1237,6 +1332,7 @@ def main() -> int:
         "source": "snappy_tpu_torch/csrc/decode_blocks_r4.cu",
         "replaces": "snappy_tpu/ops/pallas_decode_r4.py:270",
         "launches": r4_launches,
+        "bench_launches": bench_launches["decode_blocks_r4"],
         "max_abs_err": max(err10, err11),
         "ms": r4_ms,
         "plain_ms": r4_plain_ms,

@@ -6,7 +6,10 @@
               on ``"cpu"`` (the counterpart of snappy_tpu's "xla" backend)
   - "cpu"     the scalar NumPy oracle (``cpu/oracle.py``)
   - None      the native codec where it builds and loads, else the oracle,
-              as in snappy_tpu
+              as in snappy_tpu; "native" falls back the same way
+
+Any other name raises ValueError, where snappy_tpu runs the oracle: a typo
+must not silently take the slowest codec.
 """
 
 from __future__ import annotations
@@ -17,11 +20,11 @@ from .native import runtime as native_runtime
 
 def _host_codec(backend: str | None):
     """The module (with ``compress`` and ``uncompress``) of a host backend."""
-    if backend == "native" or (backend is None and native_runtime.available()):
+    if backend not in (None, "native", "cpu"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend != "cpu" and native_runtime.available():
         return native_runtime
-    if backend in (None, "cpu"):
-        return oracle
-    raise ValueError(f"unknown backend {backend!r}")
+    return oracle
 
 
 def compress(data, backend: str | None = None, device="cuda", encoder: str = "kernel") -> bytes:

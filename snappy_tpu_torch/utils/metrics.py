@@ -3,7 +3,7 @@
 The counterpart of ``snappy_tpu/utils/metrics.py``: ``Metrics`` collects
 throughput, ratio and timing records and writes them as JSON;
 ``time_device_fn`` times a function on the device its tensor arguments live
-on.
+on, and ``device_times`` gives each of its samples.
 """
 
 from __future__ import annotations
@@ -29,9 +29,9 @@ class Metrics:
             json.dump({"run": self.run, "results": self.results, "ts": time.time()}, f, indent=2)
 
 
-def time_device_fn(fn, args, iters: int = 10, warmup: int = 3) -> float:
-    """Median seconds of one call ``fn(*args)`` over ``iters`` timed calls,
-    after ``warmup`` untimed ones.
+def device_times(fn, args, iters: int = 10, warmup: int = 3) -> list[float]:
+    """Seconds of each of ``iters`` timed calls ``fn(*args)``, after
+    ``warmup`` untimed ones.
 
     The device is that of the first tensor in ``args``. On a CUDA device each
     call is timed with CUDA events on the current stream (device time from
@@ -61,4 +61,10 @@ def time_device_fn(fn, args, iters: int = 10, warmup: int = 3) -> float:
             t0 = time.perf_counter()
             fn(*args)
             times.append(time.perf_counter() - t0)
-    return statistics.median(times)
+    return times
+
+
+def time_device_fn(fn, args, iters: int = 10, warmup: int = 3) -> float:
+    """Median seconds of one call ``fn(*args)`` over ``iters`` timed calls,
+    after ``warmup`` untimed ones, as ``device_times`` takes them."""
+    return statistics.median(device_times(fn, args, iters, warmup))

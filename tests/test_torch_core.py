@@ -91,7 +91,8 @@ def test_port_imports_neither_jax_nor_snappy_tpu():
         "import snappy_tpu_torch.ops.host, snappy_tpu_torch.ops.cuda_decode\n"
         "import snappy_tpu_torch.ops.kernels, snappy_tpu_torch.parallel.host\n"
         "import snappy_tpu_torch.ops.cuda_encode, snappy_tpu_torch.ops.encode_torch, snappy_tpu_torch.ops.route\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'snappy_tpu'))\n"
+        "import snappy_tpu_torch.utils.profiling, snappy_tpu_torch.tools.bench, snappy_tpu_torch.tools.run_corpus\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'snappy_tpu', 'bench'))\n"
         "print(','.join(bad))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

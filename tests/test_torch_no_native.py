@@ -110,3 +110,29 @@ def test_raw_to_frame(no_native, checksum):
     ours = framed.raw_to_frame(stream, config_from_reference(cfg), device="cpu")
     assert ours == ref_framed.raw_to_frame(stream, cfg)
     assert snappy_tpu_torch.uncompress_framed(ours, device="cpu") == raw
+
+
+@pytest.mark.parametrize("name", ["html", "fireworks.jpeg"])
+def test_native_backend_falls_back_to_the_oracle(no_native, name):
+    """backend="native" takes the oracle where the library cannot load, as
+    the reference's does, in both directions."""
+    raw = read_testdata(name)
+    ours = snappy_tpu_torch.compress(raw, backend="native")
+    assert ours == snappy_tpu.compress(raw, backend="native") == snappy_tpu_torch.compress(raw, backend="cpu")
+    assert snappy_tpu_torch.uncompress(ours, backend="native") == snappy_tpu.uncompress(ours, backend="native") == raw
+
+
+@pytest.mark.parametrize("loads", [True, False])
+@pytest.mark.parametrize("backend", ["bogus", "xla"])
+def test_unknown_backend_raises(monkeypatch, loads, backend):
+    """An unknown name raises, with or without the native library, where the
+    reference would run its oracle (or, for "xla", its JAX path): a typo
+    must not silently take the slowest codec."""
+    if not loads:
+        monkeypatch.setattr(nat, "_load", _unloadable)
+    assert nat.available() == loads
+    stream = snappy_tpu_torch.compress(b"hello hello hello", backend="cpu")
+    with pytest.raises(ValueError, match="unknown backend"):
+        snappy_tpu_torch.compress(b"hello hello hello", backend=backend)
+    with pytest.raises(ValueError, match="unknown backend"):
+        snappy_tpu_torch.uncompress(stream, backend=backend)
