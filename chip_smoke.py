@@ -52,7 +52,10 @@ non-zero:
               version on phase 3's battery (a trailing byte is corrupt to
               K3), on a 128 KiB batch of rows at the edges of its envelope
               (offset 65,536 and a 65,537-byte literal refused, 65,535 and
-              65,536 taken), and on rows whose lengths do not fit the batch
+              65,536 taken), which K3 decodes in device memory (its variant
+              for rows too wide to stage: the phase checks its shared memory
+              a block at 128 KiB), and on rows whose lengths do not fit the
+              batch
  11. decode A/B  K1 against K3 on the same streams, as bench.py's decode_own
               and decode_foreign stages run them: the 1024 block streams of
               phase 8's frame (own) and the 1024 scan_blocks segments of
@@ -62,8 +65,9 @@ non-zero:
               decodes under it and the own streams are no larger than its
               output. Then interleaved rounds (3 own, 2 foreign) with
               utils/metrics.time_device_fn; each kernel's GB/s, the ratio
-              vs_r4_same_run (K1 over K3) and the faster kernel. K3's launches
-              are counted over this phase
+              vs_r4_same_run (K1 over K3) and the faster kernel; K3's and K1's
+              shared memory a block, blocks an SM and waves beside their
+              times. K3's launches are counted over this phase
  12. probes   the round-4 probe kernels P1-P6 (csrc/exp_vector_walk.cu), every
               variant against its plain version, bit for bit, at its high
               knob (P2 and P3 also on the stalled data of the reference's
@@ -133,10 +137,11 @@ non-zero:
               said to be skipped (libsnappy not installed), 3 rounds of each
               kernel in decode_own and 2 in decode_foreign, the scaling
               model over 4 shards of one card, K1, K2 and K3 launched; a line
-              a stage with its GB/s and spread and a {"bench": {...}} line
-              of its records; then tools/run_corpus.run once (a line a file
-              and the markdown table, every file's K2 and array streams
-              decoded bit-exact by K1); then torch.profiler through
+              a stage with its GB/s and spread, K3's best round beside K1's
+              on the bench's batch with their blocks an SM, and a
+              {"bench": {...}} line of its records; then tools/run_corpus.run
+              once (a line a file and the markdown table, every file's K2 and
+              array streams decoded bit-exact by K1); then torch.profiler through
               utils/profiling.profile_to around one uncompress_framed of
               phase 8's frame: one trace file naming K1's annotation
               (framed.dispatch_uncompress), with its kernel events counted
@@ -719,7 +724,10 @@ def bench_phase(card: str, raw_main: bytes, frame: bytes, dev) -> dict[str, int]
     per-file corpus table once, and a profiler trace of one
     uncompress_framed of ``frame`` (``raw_main``'s). Returns K1's, K2's and
     K3's launches over the phase."""
+    import torch
+
     import snappy_tpu_torch
+    from snappy_tpu_torch.ops import cuda_decode, cuda_decode_r4
     from snappy_tpu_torch.tools import bench, run_corpus
     from snappy_tpu_torch.utils import profile_to
 
@@ -753,6 +761,15 @@ def bench_phase(card: str, raw_main: bytes, frame: bytes, dev) -> dict[str, int]
         spread = r["timing"]["spread"] if "timing" in r else None
         print(f"[16 bench] {r['stage']}: {rates}" + (f", spread {spread:.4f}" if spread is not None else ""),
               flush=True)
+    own = recs["decode_own"]["rounds_ms"]
+    k3_smem, k3_per_sm = cuda_decode_r4.occupancy(bench.B)
+    k1_smem, k1_per_sm = cuda_decode.occupancy()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[16 bench] decode_own on {card}: K3 {min(own['r4_grouped']):.4f} ms ({k3_per_sm} blocks an SM, "
+          f"{k3_per_sm * sms} at once) beside K1 {min(own['r5_farnear']):.4f} ms ({k1_per_sm} an SM, {k1_per_sm * sms} "
+          f"at once), best of {len(own['r4_grouped'])} rounds; vs_r4_same_run "
+          f"{recs['decode_own_r4control']['vs_r4_same_run']:.4f}; decode_own_autotuned picks "
+          f"{recs['decode_own_autotuned']['picked']}", flush=True)
     print(json.dumps({"bench": {"run": report["run"], "stages": report["stages"], "headline": headline}}), flush=True)
 
     before = {k: m.launches for k, m in modules.items()}
@@ -1159,10 +1176,13 @@ def main() -> int:
     g_out, g_ok, _ = cuda_decode_r4.decode_blocks(e_args[0], g_clens, g_ulens, wide)
     check(g_ok.tolist() == [False, False, True, False, False] and not bool(g_out[[0, 1, 3, 4]].any())
           and torch.equal(g_out[2], k_out[2]), "K3 did not refuse lengths outside the batch")
+    wide_smem, wide_per_sm = cuda_decode_r4.occupancy(wide)
+    check(wide_smem < wide, f"K3 staged the {wide}-byte rows ({wide_smem} bytes of shared memory a block)")
     print(f"[10 r4 kernel] {len(cases)} battery rows + {len(edge)} envelope rows at 128 KiB: out, ok identical "
           f"to the plain version, total identical where ok; max |kernel - plain| = {err10}; the trailing byte, "
           f"offset 65,536 and a 65,537-byte literal refused (K1 takes all three); 4 rows with lengths outside "
-          f"the batch refused", flush=True)
+          f"the batch refused; the 128 KiB rows in device memory ({wide_smem} bytes of shared memory a block, "
+          f"{wide_per_sm} blocks an SM)", flush=True)
 
     # 11. the decode A/B: K1 against K3 on the same streams
     own_idx = framed.parse_index(frame_w)
@@ -1233,6 +1253,14 @@ def main() -> int:
     print(f"[11 decode A/B] gates before timing: both kernels bit-exact with every row ok on own and foreign "
           f"streams, K3 identical to its plain version (max |kernel - plain| = {err11}); {gate}; "
           f"K3 launches {r4_launches}; K3 plain version {r4_plain_ms:.4f} ms on the own streams", flush=True)
+    k3_smem, k3_per_sm = cuda_decode_r4.occupancy(BLOCK)
+    k1_smem, k1_per_sm = cuda_decode.occupancy()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_own = len(own_clens)
+    print(f"[11 decode A/B] on {card}, {n_own} own streams: K3 {own_best['K3']:.4f} ms, {k3_smem} bytes of shared "
+          f"memory a block, {k3_per_sm} blocks an SM ({-(-n_own // (k3_per_sm * sms))} waves); K1 "
+          f"{own_best['K1']:.4f} ms, {k1_smem} bytes, {k1_per_sm} an SM ({-(-n_own // (k1_per_sm * sms))} waves)",
+          flush=True)
     print(json.dumps({"decode_ab": ab_metrics.results}), flush=True)
 
     # 12. the probes P1-P6: gates, then the tool's timing runs as the main path

@@ -14,13 +14,21 @@ row with ``ulens`` outside [0, out_size] or ``clens`` outside [0, C - COMP_PAD]
 comes back not ok, all zero. A CPU tensor with such a row raises; otherwise
 it goes to the plain version, ``decode_torch.decode_blocks_r4``. No other
 device is taken.
+
+The kernel walks each stream by one warp into chunks of records while the
+block's other warps drain the chunk before; the output row is staged in
+shared memory where two blocks still fit an SM (``occupancy`` gives the
+size and the blocks an SM for a row width). The design and what bounds it
+are in the source's header.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from . import cuda_decode, decode_torch
+from . import cuda_decode, decode_torch, kernels
 
 # Kernel launches since import (or since a caller reset it to 0).
 launches = 0
@@ -38,3 +46,15 @@ def decode_blocks(comp: torch.Tensor, clens: torch.Tensor, ulens: torch.Tensor, 
     if comp.shape[0]:
         launches += 1
     return res
+
+
+def occupancy(out_size: int) -> tuple[int, int]:
+    """(bytes of shared memory a block takes for rows of ``out_size`` bytes,
+    blocks of it one SM of the current card holds at once). Needs a CUDA
+    card."""
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    rc = kernels.load("decode_blocks_r4").snappy_cuda_decode_blocks_r4_occupancy(
+        out_size, ctypes.byref(smem), ctypes.byref(blocks)
+    )
+    kernels.check(rc, "decode_blocks_r4 occupancy")
+    return smem.value, blocks.value

@@ -40,6 +40,7 @@ ENTRIES = {
     },
     "decode_blocks_r4": {
         "snappy_cuda_decode_blocks_r4": (_INT, _DECODE_ARGS),
+        "snappy_cuda_decode_blocks_r4_occupancy": (_INT, [_I64, _PTR, _PTR]),
     },
     # The probes P1-P6; each entry point ends with (cycles or null, stream).
     "exp_vector_walk": {
