@@ -15,16 +15,19 @@
 // and layouts of the plain versions in ops/probes_torch.py: int32 wraps,
 // `>>` is arithmetic, a dynamic row or word index is clamped into its array,
 // and output positions that no store reaches hold INT_MIN. The TPU's (8,128)
-// vector registers and SMEM scalars become this card's: a warp per 128-lane
-// row with 4 lanes a thread, or one thread where the TPU ran its scalar core.
+// vector registers and SMEM scalars become this card's: warps whose lanes
+// hold the (8, 128) state's values, or one thread where the TPU ran its
+// scalar core.
 //
-// What bounds them: each is a chain of dependent steps (a select, a load, a
-// tag), so its time is the latency of one step times the steps; the bytes
-// are a few KiB to a few MiB. The design keeps every step's operands on chip
-// (registers, shared memory) so that the latency read is the primitive's own.
-// When `cycles` is not null, thread 0 of block 0 writes the clock64() span of
-// its block there: the slope of two knobs gives cycles a step without
-// assuming a clock rate.
+// What bounds them: P1, P2, P3 and P5 are chains of dependent steps (a
+// select, a load, a tag), so their time is the latency of one step's
+// critical path times the steps; P4 and P6 drain records that do not depend
+// on each other, bound by a block's issue and its loads and stores. The
+// bytes are a few KiB to a few MiB. The design keeps every step's operands
+// on chip (registers, shared memory) so that the latency read is the
+// primitive's own. When `cycles` is not null, thread 0 of block 0 writes the
+// clock64() span of its block there: the slope of two knobs gives cycles a
+// step without assuming a clock rate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,74 +69,93 @@ __device__ __forceinline__ int32_t* shared_words() {
 }
 
 // ------------------------------------------------------------------ P1
-// One block; warp s holds sublane s of each of the G chains, lane t the
-// lanes t + 32j (j < 4). The window (x[0] as given) stays in registers and,
-// for gather, in shared memory: the index picks a lane and a register, so a
-// shuffle would need four shuffles and a select per value where one shared
-// load picks the word. reduce is a compare and a warp sum. axis 0 selects
-// among a thread's own G values; axis 1 reads the other warps' rows through
-// two state copies in shared memory, one barrier a step.
-constexpr int kChainThreads = 8 * kWarp;
+// What bounds it on this card: the latency of one step's dependent chain
+// (ALU ops, a shared load or a shuffle), so long as no SM has more selects
+// a step to serve than it serves in that time. One block of 8 warps, as
+// the TPU's one core held the state, put 8 x 4G selects a step on one SM,
+// and the gather's random words cost ~2.4 wavefronts each: the SM's shared
+// memory, not the select, set the step (90 cycles at G=1, 4.2x that at 4,
+// on an NVIDIA H100 80GB HBM3 at 700 W). So the state is spread over
+// blocks and every block runs the same steps (block 0's clock64() span
+// gives cycles a step). alu, axis 0, axis 1, gather: 32 one-warp blocks,
+// each thread holding its G chains; lane 8 (c mod 4) + s of block c / 4
+// holds column c, sublane s. A column's 8 sublanes are one 8-lane segment
+// of a warp, so axis 1 is one shuffle of width 8 from lane x mod 8 of the
+// segment (INT_MIN for an index >= 8), with no barrier. The gather reads
+// its lane's own copy of its sublane's window row, word k at byte
+// ((k << 5) + lane) * 4 (16 KiB a block): every load is one wavefront
+// whatever the index, and the address is a shift and a mask of x. reduce:
+// 8 blocks, one a sublane row, warp g of its G warps holding chain g (lane
+// t the lanes t + 32j), a compare and a warp sum a step: one warp's warp
+// sums do not overlap, the SM's warps' do. The ALU chain's step is
+// idempotent after the first ((x & 127) ^ x clears the low bits), so an
+// empty asm hides each step's input from the compiler, which would
+// otherwise fold several steps into one.
+constexpr int kColumnBlocks = kLanes / 4;
 
 template <int kMode, int G>
-__global__ void __launch_bounds__(kChainThreads)
+__global__ void __launch_bounds__(kMode == kReduce ? G * kWarp : kWarp)
 chain_kernel(int reps, const int32_t* __restrict__ x, int32_t* __restrict__ out,
              long long* __restrict__ cycles) {
-  int32_t* sm = shared_words();
-  const int tid = threadIdx.x, s = tid / kWarp, t = tid % kWarp;
+  const int lane = threadIdx.x % kWarp;
   const long long start = clock64();
-  int32_t v[G][4], win[4];
-  for (int g = 0; g < G; ++g)
-    for (int j = 0; j < 4; ++j) v[g][j] = x[(g * 8 + s) * kLanes + t + kWarp * j];
-  for (int j = 0; j < 4; ++j) win[j] = v[0][j];
-  if (kMode == kGather) {
-    for (int j = 0; j < 4; ++j) sm[s * kLanes + t + kWarp * j] = win[j];
-    __syncwarp();
-  }
-  for (int i = 0; i < reps; ++i) {
-    if (kMode == kAlu) {
-      for (int g = 0; g < G; ++g)
-        for (int j = 0; j < 4; ++j) v[g][j] = add32((v[g][j] & 127) ^ v[g][j], 1);
-    } else if (kMode == kAxis0) {
-      int32_t nv[G][4];
-      for (int g = 0; g < G; ++g)
-        for (int j = 0; j < 4; ++j) {
-          const int idx = v[g][j] & 7;
+  if (kMode == kReduce) {
+    const int s = blockIdx.x, row = (threadIdx.x / kWarp * 8 + s) * kLanes;
+    int32_t v[4], win[4];
+    for (int j = 0; j < 4; ++j) {
+      v[j] = x[row + lane + kWarp * j];
+      win[j] = x[s * kLanes + lane + kWarp * j];
+    }
+    for (int i = 0; i < reps; ++i) {
+      unsigned part = 0;
+      for (int j = 0; j < 4; ++j)
+        part += (v[j] & 127) == lane + kWarp * j ? static_cast<uint32_t>(win[j]) : 0u;
+      const int32_t w = static_cast<int32_t>(__reduce_add_sync(kFull, part));
+      for (int j = 0; j < 4; ++j) v[j] = add32(add32(v[j], w & 7), 1);
+    }
+    for (int j = 0; j < 4; ++j) out[row + lane + kWarp * j] = v[j];
+  } else {
+    const int s = lane & 7, at = s * kLanes + blockIdx.x * 4 + (lane >> 3);
+    const char* own = reinterpret_cast<const char*>(shared_words());  // gather: window row s, this lane's copy
+    const uint32_t lane4 = lane * 4;
+    int32_t v[G];
+    for (int g = 0; g < G; ++g) v[g] = x[g * kTile + at];
+    if (kMode == kGather) {
+      for (int k = 0; k < kLanes; ++k) shared_words()[k * kWarp + lane] = x[s * kLanes + k];
+      __syncwarp();
+    }
+    for (int i = 0; i < reps; ++i) {
+      if (kMode == kAlu) {
+        for (int g = 0; g < G; ++g) {
+          asm volatile("" : "+r"(v[g]));
+          v[g] = add32((v[g] & 127) ^ v[g], 1);
+        }
+      } else if (kMode == kAxis0) {
+        int32_t nv[G];
+        for (int g = 0; g < G; ++g) {
+          const int idx = v[g] & 7;
           int32_t sel = kIntMin;
-          for (int h = 0; h < G; ++h) sel = idx == h ? v[h][j] : sel;
-          nv[g][j] = add32(sel, 1);
+          for (int h = 0; h < G; ++h) sel = idx == h ? v[h] : sel;
+          nv[g] = add32(sel, 1);
         }
-      for (int g = 0; g < G; ++g)
-        for (int j = 0; j < 4; ++j) v[g][j] = nv[g][j];
-    } else if (kMode == kAxis1) {
-      int32_t* buf = sm + (i & 1) * G * kTile;
-      for (int g = 0; g < G; ++g)
-        for (int j = 0; j < 4; ++j) buf[(g * 8 + s) * kLanes + t + kWarp * j] = v[g][j];
-      __syncthreads();
-      for (int g = 0; g < G; ++g)
-        for (int j = 0; j < 4; ++j) {
-          const int idx = v[g][j] & 127;
-          v[g][j] = add32(idx < 8 ? buf[(g * 8 + idx) * kLanes + t + kWarp * j] : kIntMin, 1);
+        for (int g = 0; g < G; ++g) v[g] = nv[g];
+      } else if (kMode == kAxis1) {
+        for (int g = 0; g < G; ++g) {
+          const int32_t sel = __shfl_sync(kFull, v[g], v[g], 8);  // sublane v mod 8 of this column
+          v[g] = add32((v[g] & 127) < 8 ? sel : kIntMin, 1);
         }
-    } else if (kMode == kGather) {
-      for (int g = 0; g < G; ++g)
-        for (int j = 0; j < 4; ++j)
-          v[g][j] = add32(add32(v[g][j], sm[s * kLanes + (v[g][j] & 127)] & 7), 1);
-    } else {
-      for (int g = 0; g < G; ++g) {
-        unsigned part = 0;
-        for (int j = 0; j < 4; ++j)
-          part += (v[g][j] & 127) == t + kWarp * j ? static_cast<uint32_t>(win[j]) : 0u;
-        const int32_t w = static_cast<int32_t>(__reduce_add_sync(kFull, part));
-        for (int j = 0; j < 4; ++j) v[g][j] = add32(add32(v[g][j], w & 7), 1);
+      } else {
+        for (int g = 0; g < G; ++g) {
+          const uint32_t byte = (static_cast<uint32_t>(v[g]) << 7 & (127u << 7)) | lane4;
+          v[g] = add32(add32(v[g], *reinterpret_cast<const int32_t*>(own + byte) & 7), 1);
+        }
       }
     }
+    for (int g = 0; g < G; ++g) out[g * kTile + at] = v[g];
   }
-  for (int g = 0; g < G; ++g)
-    for (int j = 0; j < 4; ++j) out[(g * 8 + s) * kLanes + t + kWarp * j] = v[g][j];
   if (cycles) {
     __syncthreads();
-    if (tid == 0) *cycles = clock64() - start;
+    if (blockIdx.x == 0 && threadIdx.x == 0) *cycles = clock64() - start;
   }
 }
 
@@ -383,11 +405,74 @@ scalar_loop_kernel(int n, const int32_t* __restrict__ x, int32_t* __restrict__ o
 }
 
 // ------------------------------------------------------------------ P6
-// One block of 128 threads, one lane each; src, q and r staged in shared
-// memory (the reference's VMEM and SMEM), the records in order. The second
-// store is issued under each lane's mask (always), behind a branch on the
-// record's lo + n that every thread takes alike (when), or not at all.
+// One block of 128 threads, one lane each, as a decode block drains its own
+// records; src, q and r staged in shared memory (the reference's VMEM and
+// SMEM). Records do not depend on each other: only a lane's stores must
+// stay in record order, so that a later record to a row wins. So what
+// bounds it on this card is the block's issue and the latency its one warp
+// a scheduler cannot hide, not a chain. Each record's stores behind a
+// branch, with its loads sunk into the branch, took 52-73 cycles a record
+// (NVIDIA H100 80GB HBM3, 700 W). Here the stores are predicated, never
+// branched around, and the drain is software-pipelined by a group: group
+// g + 1's 8 q and 8 r (four 16-byte loads) and src words are read while
+// group g stores. A record's merge at lo is one load, from q's row where
+// j >= lo and the next row else, so a lane reads one word a store; the
+// rows are clamped by one DPX instruction each. The second store is issued
+// under each lane's mask (always), behind a branch on the record's lo + n
+// that every thread takes alike (when), or not at all (none).
 constexpr int64_t kWhenSmem = int64_t(kWhenSrcRows * kLanes + 2 * kWhenRecords) * 4;
+constexpr int kWhenGroups = kWhenRecords / 8;  // groups of a pass over the records
+
+// Lane l's word of row `row` of out (out_l = out + l) gets v where a < b,
+// unsigned: a store that every lane issues and only those lanes perform, the
+// reference's masked store. No branch, so the compiler cannot sink the
+// stored value's load behind one (a load inside a divergent branch waits out
+// its whole latency before the store, record after record); the compare and
+// the row's address are the asm's own, one instruction each.
+__device__ __forceinline__ void store_below(uint32_t a, uint32_t b, int32_t* out_l, uint32_t row, int32_t v) {
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t.reg .b64 at;\n\tsetp.lt.u32 p, %0, %1;\n\t"
+      "mad.wide.u32 at, %3, 512, %2;\n\t@p st.global.b32 [at], %4;\n\t}"
+      :: "r"(a), "r"(b), "l"(out_l), "r"(row), "r"(v));
+#else
+  if (a < b) out_l[row * kLanes] = v;
+#endif
+}
+
+// One record's loads and masks, ahead of its stores.
+struct WhenRecord {
+  int32_t v1, v2;          // the merge for row r and for row r + 1
+  uint32_t d, d2, n;       // lane - lo and lane + 128 - lo, below n where stored
+  uint32_t row1, row2;     // r and r + 1, clamped
+  bool cross;              // lo + n > 128
+};
+
+template <int kMode>
+__device__ __forceinline__ WhenRecord when_load(const int32_t* ssrc, int l, int32_t q, int32_t rr) {
+  WhenRecord w{};
+  const int32_t lo = q & 127, n = (q >> 7) & 63, d = l - lo;
+  const int j = d & 127;
+  const int32_t* at = ssrc + (q & 255) * kLanes + j;  // q's row, word j
+  const int o = j >= lo ? 0 : kLanes;                 // the merge at lo: q's row, else the next
+  w.v1 = at[o];
+  w.d = d;
+  w.n = n;
+  w.row1 = __vimin_s32_relu(rr, kWhenOutRows - 1);
+  w.cross = lo + n > kLanes;
+  if (kMode != kNone) {
+    w.v2 = at[kLanes - o];
+    w.d2 = d + kLanes;  // below n where l < lo + n - 128
+    w.row2 = __viaddmin_s32_relu(rr, 1, kWhenOutRows - 1);
+  }
+  return w;
+}
+
+template <int kMode>
+__device__ __forceinline__ void when_store(int32_t* out_l, const WhenRecord& w) {
+  store_below(w.d, w.n, out_l, w.row1, w.v1);
+  if (kMode == kAlways || (kMode == kWhen && w.cross)) store_below(w.d2, w.n, out_l, w.row2, w.v2);
+}
 
 template <int kMode>
 __global__ void __launch_bounds__(kLanes)
@@ -405,32 +490,46 @@ when_drain_kernel(int ngroups, const int32_t* __restrict__ q, const int32_t* __r
     sr[i] = r[i];
   }
   __syncthreads();
+  const int4* q4 = reinterpret_cast<const int4*>(sq);
+  const int4* r4 = reinterpret_cast<const int4*>(sr);
+  int32_t* out_l = out + l;
+  // Software-pipelined by a group: group g + 1's q, r and src words are read
+  // while group g stores.
+  WhenRecord cur[8];
+  auto load_group = [&](int g, WhenRecord* recs) {
+    const int t = g % kWhenGroups * 2;
+    const int4 qa = q4[t], qb = q4[t + 1], ra = r4[t], rb = r4[t + 1];
+    const int32_t qs[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+    const int32_t rs[8] = {ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, rb.z, rb.w};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) recs[k] = when_load<kMode>(ssrc, l, qs[k], rs[k]);
+  };
+  load_group(0, cur);
   for (int g = 0; g < ngroups; ++g) {
-    for (int k = 0; k < 8; ++k) {
-      const int t = (g % (kWhenRecords / 8)) * 8 + k;
-      const int32_t q0 = sq[t], rr = sr[t];
-      const int32_t lo = q0 & 127, n = (q0 >> 7) & 63;
-      const int base = (q0 & 255) * kLanes, j = (l - lo) & 127;
-      const int32_t a = ssrc[base + j], b = ssrc[base + kLanes + j];
-      const bool sel = j >= lo;
-      if (l >= lo && l < lo + n) out[clamp_index(rr, kWhenOutRows - 1) * kLanes + l] = sel ? a : b;
-      if (kMode == kAlways || (kMode == kWhen && lo + n > kLanes)) {
-        if (l < lo + n - kLanes) out[clamp_index(add32(rr, 1), kWhenOutRows - 1) * kLanes + l] = sel ? b : a;
-      }
-    }
+    WhenRecord next[8];
+    load_group(g + 1, next);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) when_store<kMode>(out_l, cur[k]);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) cur[k] = next[k];
   }
   __syncthreads();
   if (cycles && l == 0) *cycles = clock64() - start;
 }
 
 // ------------------------------------------------------------------ dispatch
-// The instantiation a mode names (null for none), its threads and its
-// dynamic shared memory.
+// The instantiation a mode names (null for none), and each probe's launch
+// shape: blocks, threads a block and dynamic shared memory.
 using ChainKernel = void (*)(int, const int32_t*, int32_t*, long long*);
 using DrainKernel = void (*)(int, int, const int32_t*, const int32_t*, const int32_t*, const int32_t*,
                              int32_t*, long long*);
 using ScalarKernel = void (*)(int, const int32_t*, int32_t*, long long*);
 using WhenKernel = void (*)(int, const int32_t*, const int32_t*, const int32_t*, int32_t*, long long*);
+
+struct Shape {
+  int blocks, threads;
+  int64_t smem;
+};
 
 template <int G>
 ChainKernel chain_for_g(int mode) {
@@ -448,9 +547,14 @@ ChainKernel chain_for(int mode, int g) {
   return g == 1 ? chain_for_g<1>(mode) : g == 4 ? chain_for_g<4>(mode) : nullptr;
 }
 
-int64_t chain_smem(int mode, int g) {
-  return mode == kGather ? int64_t(kTile) * 4 : mode == kAxis1 ? int64_t(2) * g * kTile * 4 : 0;
+Shape chain_shape(int mode, int g) {
+  if (mode == kReduce) return {8, g * kWarp, 0};
+  return {kColumnBlocks, kWarp, mode == kGather ? int64_t(kLanes) * kWarp * 4 : 0};
 }
+
+Shape walk8_shape(int groups) { return {groups, kWarp, int64_t(2) * kTile * 4}; }
+
+Shape walk_scalar_shape(int blocks) { return {blocks, kWalkThreads, kWalkSmem}; }
 
 DrainKernel drain_for(int mode) {
   switch (mode) {
@@ -459,6 +563,11 @@ DrainKernel drain_for(int mode) {
     case kDrainSerial: return drain_serial_kernel;
     default: return nullptr;
   }
+}
+
+Shape drain_shape(int mode) {
+  const bool serial = mode == kDrainSerial;
+  return {1, serial ? kLanes : kDrain8Threads, serial ? 0 : kDrain8Smem};
 }
 
 ScalarKernel scalar_loop_for(int work, int unroll, int cond, int chain) {
@@ -476,6 +585,8 @@ ScalarKernel scalar_loop_for(int work, int unroll, int cond, int chain) {
   }
 }
 
+Shape scalar_loop_shape() { return {1, kWarp, int64_t(1024) * 4}; }
+
 WhenKernel when_for(int mode) {
   switch (mode) {
     case kAlways: return when_drain_kernel<kAlways>;
@@ -485,6 +596,8 @@ WhenKernel when_for(int mode) {
   }
 }
 
+Shape when_shape() { return {1, kLanes, kWhenSmem}; }
+
 }  // namespace
 
 // ------------------------------------------------------------------ launch
@@ -492,14 +605,16 @@ WhenKernel when_for(int mode) {
 namespace {
 
 template <class Kernel, class... Args>
-int launch(Kernel kernel, int blocks, int threads, int64_t smem, void* stream, Args... args) {
+int launch(Kernel kernel, Shape shape, void* stream, Args... args) {
   if (kernel == nullptr) return cudaErrorInvalidValue;
-  if (blocks <= 0) return cudaSuccess;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (shape.blocks <= 0) return cudaSuccess;
+  if (shape.smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(shape.smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<dim3(unsigned(blocks)), dim3(unsigned(threads)), size_t(smem), static_cast<cudaStream_t>(stream)>>>(args...);
+  kernel<<<dim3(unsigned(shape.blocks)), dim3(unsigned(shape.threads)), size_t(shape.smem),
+           static_cast<cudaStream_t>(stream)>>>(args...);
   return cudaGetLastError();
 }
 
@@ -512,41 +627,39 @@ extern "C" {
 // long long on the card, or null.
 
 int snappy_probe_chain(int mode, int g, int reps, const void* x, void* out, void* cycles, void* stream) {
-  return launch(chain_for(mode, g), 1, kChainThreads, chain_smem(mode, g), stream, reps,
-                static_cast<const int32_t*>(x), static_cast<int32_t*>(out), static_cast<long long*>(cycles));
+  return launch(chain_for(mode, g), chain_shape(mode, g), stream, reps, static_cast<const int32_t*>(x),
+                static_cast<int32_t*>(out), static_cast<long long*>(cycles));
 }
 
 int snappy_probe_walk8(int groups, int nrow, const void* clen, const void* cmds, void* rec, void* meta,
                        void* cycles, void* stream) {
-  return launch(walk8_kernel, groups, kWarp, int64_t(2) * kTile * 4, stream, nrow,
-                static_cast<const int32_t*>(clen), static_cast<const int32_t*>(cmds), static_cast<int32_t*>(rec),
-                static_cast<int32_t*>(meta), static_cast<long long*>(cycles));
+  return launch(walk8_kernel, walk8_shape(groups), stream, nrow, static_cast<const int32_t*>(clen),
+                static_cast<const int32_t*>(cmds), static_cast<int32_t*>(rec), static_cast<int32_t*>(meta),
+                static_cast<long long*>(cycles));
 }
 
 int snappy_probe_walk_scalar(int blocks, int64_t rounds, const void* clen, const void* cmds, void* meta,
                              void* cycles, void* stream) {
-  return launch(walk_scalar_kernel, blocks, kWalkThreads, kWalkSmem, stream, rounds,
-                static_cast<const int32_t*>(clen), static_cast<const int32_t*>(cmds), static_cast<int32_t*>(meta),
-                static_cast<long long*>(cycles));
+  return launch(walk_scalar_kernel, walk_scalar_shape(blocks), stream, rounds, static_cast<const int32_t*>(clen),
+                static_cast<const int32_t*>(cmds), static_cast<int32_t*>(meta), static_cast<long long*>(cycles));
 }
 
 int snappy_probe_drain(int mode, int nrec, int nsrc, const void* q0, const void* r, const void* fld,
                        const void* src, void* out, void* cycles, void* stream) {
-  const bool serial = mode == kDrainSerial;
-  return launch(drain_for(mode), 1, serial ? kLanes : kDrain8Threads, serial ? 0 : kDrain8Smem, stream, nrec, nsrc,
-                static_cast<const int32_t*>(q0), static_cast<const int32_t*>(r), static_cast<const int32_t*>(fld),
-                static_cast<const int32_t*>(src), static_cast<int32_t*>(out), static_cast<long long*>(cycles));
+  return launch(drain_for(mode), drain_shape(mode), stream, nrec, nsrc, static_cast<const int32_t*>(q0),
+                static_cast<const int32_t*>(r), static_cast<const int32_t*>(fld), static_cast<const int32_t*>(src),
+                static_cast<int32_t*>(out), static_cast<long long*>(cycles));
 }
 
 int snappy_probe_scalar_loop(int work, int unroll, int cond, int chain, int n, const void* x, void* out,
                              void* cycles, void* stream) {
-  return launch(scalar_loop_for(work, unroll, cond, chain), 1, kWarp, int64_t(1024) * 4, stream, n,
+  return launch(scalar_loop_for(work, unroll, cond, chain), scalar_loop_shape(), stream, n,
                 static_cast<const int32_t*>(x), static_cast<int32_t*>(out), static_cast<long long*>(cycles));
 }
 
 int snappy_probe_when_drain(int mode, int ngroups, const void* q, const void* r, const void* src, void* out,
                             void* cycles, void* stream) {
-  return launch(when_for(mode), 1, kLanes, kWhenSmem, stream, ngroups, static_cast<const int32_t*>(q),
+  return launch(when_for(mode), when_shape(), stream, ngroups, static_cast<const int32_t*>(q),
                 static_cast<const int32_t*>(r), static_cast<const int32_t*>(src), static_cast<int32_t*>(out),
                 static_cast<long long*>(cycles));
 }

@@ -9,8 +9,11 @@ and ``when_drain`` (P6). The knob is a Python int.
 A CUDA tensor launches the kernel on the current stream and returns without
 synchronising, or raises. Given ``cycles``, an int64[1] tensor on the same
 card, the kernel writes there the clock64() span of its block 0, from which
-two knobs give cycles a step. A CPU tensor goes to the plain version, which
-counts no cycles. No other device is taken.
+two knobs give cycles a step. Given ``lib``, another build of the same
+entry points (such as a parent commit's copy of the source, which
+``tools/exp_vector_walk.py --parent`` builds), the launch goes to it and is
+not counted in ``launches``. A CPU tensor goes to the plain version, which
+counts no cycles and takes no ``lib``. No other device is taken.
 
 P2 takes one length a walk, where the reference takes one a lane: its kernel
 walks each walk with one thread. A group whose walks' lengths differ over
@@ -56,11 +59,11 @@ def _mode(mode: str, modes: tuple) -> int:
     return modes.index(mode)
 
 
-def _on_card(t: torch.Tensor, cycles: torch.Tensor | None) -> bool:
+def _on_card(t: torch.Tensor, cycles: torch.Tensor | None, lib) -> bool:
     """True for a CUDA tensor, False for a CPU one; raises for any other."""
     if t.device.type == "cpu":
-        if cycles is not None:
-            raise ValueError("cycles are counted only by the kernels, on the card")
+        if cycles is not None or lib is not None:
+            raise ValueError("cycles and lib are for the kernels, on the card")
         return False
     if t.device.type != "cuda":
         raise ValueError(f"no probe kernel for device {t.device}")
@@ -69,16 +72,17 @@ def _on_card(t: torch.Tensor, cycles: torch.Tensor | None) -> bool:
     return True
 
 
-def _launch(kernel: str, entry: str, device, cycles, *args) -> None:
+def _launch(kernel: str, entry: str, device, cycles, *args, lib=None) -> None:
     with torch.cuda.device(device):
-        rc = getattr(kernels.load("exp_vector_walk"), entry)(
+        rc = getattr(lib if lib is not None else kernels.load("exp_vector_walk"), entry)(
             *args, cycles.data_ptr() if cycles is not None else None, torch.cuda.current_stream(device).cuda_stream
         )
     kernels.check(rc, f"{entry} launch")
-    launches[kernel] += 1
+    if lib is None:
+        launches[kernel] += 1
 
 
-def chain(knob: int, x: torch.Tensor, mode: str, cycles: torch.Tensor | None = None) -> torch.Tensor:
+def chain(knob: int, x: torch.Tensor, mode: str, cycles: torch.Tensor | None = None, lib=None) -> torch.Tensor:
     """P1 on x int32[G, 8, 128], G 1 or 4; see ``probes_torch.chain``."""
     g = x.shape[0] if isinstance(x, torch.Tensor) and x.dim() == 3 else 0
     if g not in (1, 4):
@@ -86,21 +90,21 @@ def chain(knob: int, x: torch.Tensor, mode: str, cycles: torch.Tensor | None = N
     _check("x", x, (g, 8, LANES))
     m = _mode(mode, CHAIN_MODES)
     _knob(knob, _INT_MAX)
-    if not _on_card(x, cycles):
+    if not _on_card(x, cycles, lib):
         return probes_torch.chain(knob, x, mode)
     out = torch.empty_like(x)
-    _launch("chain", "snappy_probe_chain", x.device, cycles, m, g, knob, x.data_ptr(), out.data_ptr())
+    _launch("chain", "snappy_probe_chain", x.device, cycles, m, g, knob, x.data_ptr(), out.data_ptr(), lib=lib)
     return out
 
 
-def walk8(knob: int, clen: torch.Tensor, cmds: torch.Tensor, cycles: torch.Tensor | None = None):
+def walk8(knob: int, clen: torch.Tensor, cmds: torch.Tensor, cycles: torch.Tensor | None = None, lib=None):
     """P2 on clen int32[g, 8, 128], cmds int32[g, R_ROWS, 8, 128]; see
     ``probes_torch.walk8`` and, for the lengths, the module docstring."""
     g = cmds.shape[0] if isinstance(cmds, torch.Tensor) and cmds.dim() == 4 else 0
     _check("cmds", cmds, (g, R_ROWS, 8, LANES))
     _check("clen", clen, (g, 8, LANES), like=cmds)
     _knob(knob, R_ROWS)
-    if not _on_card(cmds, cycles):
+    if not _on_card(cmds, cycles, lib):
         rec, meta = probes_torch.walk8(knob, clen, cmds)
         ragged = (clen != clen[..., :1]).flatten(1).any(1)
         rec[ragged] = probes_torch.INT_MIN
@@ -110,28 +114,29 @@ def walk8(knob: int, clen: torch.Tensor, cmds: torch.Tensor, cycles: torch.Tenso
     meta = torch.empty((g, 1, 2), dtype=torch.int32, device=cmds.device)
     if g:
         _launch("walk8", "snappy_probe_walk8", cmds.device, cycles, g, knob, clen.data_ptr(), cmds.data_ptr(),
-                rec.data_ptr(), meta.data_ptr())
+                rec.data_ptr(), meta.data_ptr(), lib=lib)
     return rec, meta
 
 
-def walk_scalar(knob: int, clen: torch.Tensor, cmds: torch.Tensor, cycles: torch.Tensor | None = None):
+def walk_scalar(knob: int, clen: torch.Tensor, cmds: torch.Tensor, cycles: torch.Tensor | None = None,
+                lib=None):
     """P3 on clen int32[n, 1, 1], cmds int32[n, 1, NCP]; see
     ``probes_torch.walk_scalar``."""
     n = cmds.shape[0] if isinstance(cmds, torch.Tensor) and cmds.dim() == 3 else 0
     _check("cmds", cmds, (n, 1, NCP))
     _check("clen", clen, (n, 1, 1), like=cmds)
     _knob(knob, _INT_MAX // NCP)  # the reference's step count stays in int32
-    if not _on_card(cmds, cycles):
+    if not _on_card(cmds, cycles, lib):
         return probes_torch.walk_scalar(knob, clen, cmds)
     meta = torch.empty((n, 1, 2), dtype=torch.int32, device=cmds.device)
     if n:
         _launch("walk_scalar", "snappy_probe_walk_scalar", cmds.device, cycles, n, knob * NCP // 5 // 16 + 1,
-                clen.data_ptr(), cmds.data_ptr(), meta.data_ptr())
+                clen.data_ptr(), cmds.data_ptr(), meta.data_ptr(), lib=lib)
     return meta
 
 
 def drain(knob: int, q0: torch.Tensor, r: torch.Tensor, fld: torch.Tensor, src: torch.Tensor, mode: str,
-          cycles: torch.Tensor | None = None) -> torch.Tensor:
+          cycles: torch.Tensor | None = None, lib=None) -> torch.Tensor:
     """P4 of N records (N a multiple of 8) on q0, r int32[N], fld int32[N //
     8, 8, 128] and src int32[S, 128] into out int32[S + 8, 128]; see
     ``probes_torch.drain``."""
@@ -144,32 +149,32 @@ def drain(knob: int, q0: torch.Tensor, r: torch.Tensor, fld: torch.Tensor, src: 
         _check(name, t, shape, like=src)
     m = _mode(mode, DRAIN_MODES)
     _knob(knob, nrec)
-    if not _on_card(src, cycles):
+    if not _on_card(src, cycles, lib):
         return probes_torch.drain(knob, q0, r, fld, src, mode)
     out = torch.empty((nsrc + 8, LANES), dtype=torch.int32, device=src.device)
     _launch("drain", "snappy_probe_drain", src.device, cycles, m, knob, nsrc, q0.data_ptr(), r.data_ptr(),
-            fld.data_ptr(), src.data_ptr(), out.data_ptr())
+            fld.data_ptr(), src.data_ptr(), out.data_ptr(), lib=lib)
     return out
 
 
 def scalar_loop(knob: int, x: torch.Tensor, work: int, unroll: int, cond: bool, chain: bool,
-                cycles: torch.Tensor | None = None) -> torch.Tensor:
+                cycles: torch.Tensor | None = None, lib=None) -> torch.Tensor:
     """P5 on x int32[1024], for one of ``SCALAR_VARIANTS``; see
     ``probes_torch.scalar_loop``."""
     _check("x", x, (1024,))
     if (work, unroll, bool(cond), bool(chain)) not in _SCALAR_VARIANTS:
         raise ValueError(f"no P5 variant work={work} unroll={unroll} cond={cond} chain={chain}")
     _knob(knob, 1 << 30)  # ip stays below 2**31 at the loop's last test
-    if not _on_card(x, cycles):
+    if not _on_card(x, cycles, lib):
         return probes_torch.scalar_loop(knob, x, work, unroll, cond, chain)
     out = torch.empty(1, dtype=torch.int32, device=x.device)
     _launch("scalar_loop", "snappy_probe_scalar_loop", x.device, cycles, work, unroll, int(cond), int(chain), knob,
-            x.data_ptr(), out.data_ptr())
+            x.data_ptr(), out.data_ptr(), lib=lib)
     return out
 
 
 def when_drain(knob: int, q: torch.Tensor, r: torch.Tensor, src: torch.Tensor, mode: str,
-               cycles: torch.Tensor | None = None) -> torch.Tensor:
+               cycles: torch.Tensor | None = None, lib=None) -> torch.Tensor:
     """P6 on q, r int32[WHEN_RECORDS] and src int32[WHEN_SRC_ROWS, 128]; see
     ``probes_torch.when_drain``."""
     _check("src", src, (WHEN_SRC_ROWS, LANES))
@@ -177,9 +182,9 @@ def when_drain(knob: int, q: torch.Tensor, r: torch.Tensor, src: torch.Tensor, m
     _check("r", r, (WHEN_RECORDS,), like=src)
     m = _mode(mode, WHEN_MODES)
     _knob(knob, _INT_MAX)
-    if not _on_card(src, cycles):
+    if not _on_card(src, cycles, lib):
         return probes_torch.when_drain(knob, q, r, src, mode)
     out = torch.empty((WHEN_OUT_ROWS, LANES), dtype=torch.int32, device=src.device)
     _launch("when_drain", "snappy_probe_when_drain", src.device, cycles, m, knob // 8, q.data_ptr(), r.data_ptr(),
-            src.data_ptr(), out.data_ptr())
+            src.data_ptr(), out.data_ptr(), lib=lib)
     return out

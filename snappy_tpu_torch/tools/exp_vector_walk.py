@@ -1,7 +1,7 @@
 """The round-4 probes P1-P6 on one CUDA card: what one step of a tag walk or
 of a record drain costs.
 
-    python -m snappy_tpu_torch.tools.exp_vector_walk [chains|walks|drains|scalar|when|all]
+    python -m snappy_tpu_torch.tools.exp_vector_walk [chains|walks|drains|scalar|when|all] [--parent PATH]
 
 The port of the timing functions of ``benchmarks/exp_vector_walk.py``, at the
 script's sizes, with the kernels of ``csrc/exp_vector_walk.cu``:
@@ -34,21 +34,34 @@ tags of all blocks, which run at once, as the script divided; cycles a tag
 are those of block 0's own walks. Prints one line a probe, the card's name
 and power limit, and last a JSON line ``{"probes": [...]}``. Requires a CUDA
 card and nvcc.
+
+``--parent PATH`` builds another copy of ``csrc/exp_vector_walk.cu``, such as
+a parent commit's (``git show <commit>:snappy_tpu_torch/csrc/
+exp_vector_walk.cu > PATH``), beside the current one, gates it against the
+plain versions too and times it beside the current one, probe by probe
+(parent first), in the same process: each probe's line is followed by the
+parent's, and the JSON line gains ``"parent"``, the parent's records in the
+same order.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
+import dataclasses
 import functools
 import json
 import subprocess
 import sys
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Callable
 
 import numpy as np
 import torch
 
-from ..ops import cuda_probes, probes_torch
+from ..native.build import build_shared
+from ..ops import cuda_probes, kernels, probes_torch
 from ..ops.probes_torch import LANES, NCP, NREC, NSRC, R_ROWS, SCALAR_VARIANTS, WHEN_RECORDS
 from ..utils.metrics import time_device_fn
 
@@ -198,12 +211,21 @@ def scalar(dev) -> list[Probe]:
     return out
 
 
+# Rows past either end of P6's output, and one whose next row wraps: the
+# kernel clamps them into the output as the plain version does.
+WHEN_EDGE_ROWS = (-1, -7, 502, 503, 504, 600, -(1 << 31), (1 << 31) - 1)
+
+
 def when(dev) -> list[Probe]:
-    args = tuple(torch.from_numpy(a).to(dev) for a in when_inputs())
+    q, r, src = when_inputs()
+    edges = r.copy()
+    edges[::5] = np.resize(np.array(WHEN_EDGE_ROWS, np.int32), edges[::5].shape)
+    args = tuple(torch.from_numpy(a).to(dev) for a in (q, r, src))
+    edge_args = (args[0], torch.from_numpy(edges).to(dev), args[2])
     return [
         Probe(f"P6 drain2nd {mode}", "when_drain", functools.partial(cuda_probes.when_drain, mode=mode),
               functools.partial(probes_torch.when_drain, mode=mode), args, WHEN_RECORDS * 8, WHEN_RECORDS * 64,
-              WHEN_RECORDS * 64, lambda k: (k // 8 * 8,) * 2, "record", 10 * LANES)
+              WHEN_RECORDS * 64, lambda k: (k // 8 * 8,) * 2, "record", 10 * LANES, gate_args=[edge_args])
         for mode in probes_torch.WHEN_MODES
     ]
 
@@ -287,10 +309,32 @@ def card() -> str:
     return smi.stdout.strip().splitlines()[0].strip()
 
 
-def main(argv: list[str]) -> int:
-    which = argv[0] if argv else "all"
-    if which != "all" and which not in GROUPS:
-        print(f"usage: python -m snappy_tpu_torch.tools.exp_vector_walk [{'|'.join(GROUPS)}|all]", file=sys.stderr)
+def build_copy(path: Path) -> ctypes.CDLL:
+    """Another copy of the probes' source, built beside the current one
+    (nvcc, the same flags) and bound with the same entry points."""
+    compiler = [str(kernels.nvcc_path()), *kernels.NVCC_FLAGS]
+    lib = ctypes.CDLL(str(build_shared(compiler, [path], "snappy_cuda_exp_vector_walk_copy")))
+    for name, (restype, argtypes) in kernels.ENTRIES["exp_vector_walk"].items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = restype, argtypes
+    return lib
+
+
+def on_copy(p: Probe, lib: ctypes.CDLL) -> Probe:
+    """``p`` with its wrapper launching ``lib``'s kernel."""
+    return dataclasses.replace(p, fn=functools.partial(p.fn, lib=lib))
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m snappy_tpu_torch.tools.exp_vector_walk")
+    ap.add_argument("group", nargs="?", default="all", choices=(*GROUPS, "all"))
+    ap.add_argument("--parent", type=Path, help="another copy of exp_vector_walk.cu, timed beside this one")
+    try:
+        args = ap.parse_args(argv)
+    except SystemExit:
+        return 2
+    if args.parent is not None and not args.parent.is_file():
+        print(f"exp_vector_walk: no file {args.parent}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("exp_vector_walk: no CUDA device available", file=sys.stderr)
@@ -298,17 +342,27 @@ def main(argv: list[str]) -> int:
     dev = torch.device("cuda", 0)
     name = card()
     print(f"device: {torch.cuda.get_device_name(0)} ({name})", flush=True)
-    results = []
-    for group in GROUPS if which == "all" else (which,):
+    parent = build_copy(args.parent) if args.parent is not None else None
+    results, parents = [], []
+    for group in GROUPS if args.group == "all" else (args.group,):
         ps = probes(group, dev)
         for p in ps:
             gate(p)
-        print(f"{group}: {len(ps)} probes identical to their plain versions", flush=True)
-        results += run(ps)
+            if parent is not None:
+                gate(on_copy(p, parent))
+        copies = " (and the parent's)" if parent is not None else ""
+        print(f"{group}: {len(ps)} probes{copies} identical to their plain versions", flush=True)
+        for p in ps:
+            if parent is not None:
+                parents += run([on_copy(p, parent)], prefix="parent ")
+            results += run([p])
     print(name, flush=True)
-    print(json.dumps({"probes": results}), flush=True)
+    record = {"probes": results}
+    if parent is not None:
+        record["parent"] = parents
+    print(json.dumps(record), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

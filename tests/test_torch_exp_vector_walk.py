@@ -30,7 +30,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from snappy_tpu_torch.ops import cuda_probes
+from snappy_tpu_torch.ops import cuda_probes, kernels
 from snappy_tpu_torch.ops import probes_torch as pt
 from snappy_tpu_torch.tools import exp_vector_walk as tool
 from snappy_tpu_torch.tools.exp_vector_walk import drain_inputs, when_inputs
@@ -341,3 +341,30 @@ def test_walk8_wrapper_refuses_a_length_that_varies_over_lanes():
 def test_tool_needs_a_card():
     assert tool.main(["walks"]) == 2
     assert tool.main(["sideways"]) == 2
+
+
+def test_tool_parent_needs_a_path(capsys):
+    assert tool.main(["chains", "--parent"]) == 2
+    assert "--parent" in capsys.readouterr().err
+
+
+def test_tool_parent_refuses_a_missing_file(tmp_path, capsys):
+    """A missing copy is refused before anything is built or timed."""
+    assert tool.main(["when", "--parent", str(tmp_path / "missing.cu")]) == 2
+    assert "no file" in capsys.readouterr().err
+
+
+def test_tool_parent_needs_a_card(tmp_path, capsys):
+    copy = tmp_path / "exp_vector_walk.cu"
+    copy.write_text((kernels.CSRC / "exp_vector_walk.cu").read_text())
+    assert tool.main(["chains", "--parent", str(copy)]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_tool_routes_a_copy_to_the_wrappers_lib(cpu_probes):
+    """``on_copy`` hands the copy to the wrapper as ``lib``; on CPU tensors
+    the wrappers refuse it (the plain version takes no copy)."""
+    p = tool.on_copy(cpu_probes["P1 gather-select chain G=1"], lib=object())
+    assert p.fn.keywords["lib"] is not None and p.plain is cpu_probes["P1 gather-select chain G=1"].plain
+    with pytest.raises(ValueError, match="on the card"):
+        p.fn(3, *p.args)

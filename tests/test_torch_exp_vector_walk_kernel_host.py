@@ -7,9 +7,11 @@ its launch section) is compiled unchanged but for two textual substitutions,
 with one ``std::thread`` per thread of a block, a ``std::barrier`` for
 ``__syncthreads`` and one per warp for ``__syncwarp``, the warp intrinsics
 (``__shfl_sync``, ``__reduce_add_sync``, ``__reduce_max_sync``,
-``__any_sync``, ``__all_sync``) through a per-warp exchange array, and a
-static buffer for shared memory. The blocks of a grid run one after another.
-The kernels are picked by the source's own dispatch functions.
+``__any_sync``, ``__all_sync``) through a per-warp exchange array, Hopper's
+DPX clamps as plain min and max, and a static buffer for shared memory. The
+blocks of a grid run one after another. The kernels are picked, and their
+grids, block shapes and shared memory taken, by the source's own dispatch
+functions.
 
 Tolerance: exact, whole arrays, and nothing written outside them (a guard
 zone on each side of every output).
@@ -24,12 +26,13 @@ import torch
 
 from snappy_tpu_torch.ops import probes_torch as pt
 from snappy_tpu_torch.ops.kernels import CSRC
-from snappy_tpu_torch.tools.exp_vector_walk import drain_inputs, when_inputs
+from snappy_tpu_torch.tools.exp_vector_walk import WHEN_EDGE_ROWS, drain_inputs, when_inputs
 
 GUARD = 64  # canary words on each side of an output
 CANARY = 0x5A5A5A5A
 
 _PRELUDE = r"""
+#include <algorithm>
 #include <barrier>
 #include <cstdint>
 #include <memory>
@@ -58,10 +61,10 @@ static inline void emu_post(uint32_t v, uint32_t* all) {
   for (int i = 0; i < 32; ++i) all[i] = g_xchg[w][i];
 }
 template <class T>
-static inline T __shfl_sync(unsigned, T v, int src) {
+static inline T __shfl_sync(unsigned, T v, int src, int width = 32) {
   uint32_t all[32];
   emu_post(static_cast<uint32_t>(v), all);
-  return static_cast<T>(all[src & 31]);
+  return static_cast<T>(all[(threadIdx.x % 32 & ~(width - 1)) | (src & (width - 1))]);
 }
 static inline unsigned __reduce_add_sync(unsigned, unsigned v) {
   uint32_t all[32];
@@ -89,74 +92,78 @@ static inline int __all_sync(unsigned, int p) {
   for (uint32_t a : all) if (!a) return 0;
   return 1;
 }
+struct alignas(16) int4 { int32_t x, y, z, w; };
+// Hopper's DPX: max(min(a, b), 0) and max(min(a + b, c), 0), a + b wrapping.
+static inline int __vimin_s32_relu(int a, int b) { return std::max(std::min(a, b), 0); }
+static inline int __viaddmin_s32_relu(int a, int b, int c) {
+  return __vimin_s32_relu(static_cast<int>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b)), c);
+}
 constexpr int64_t kEmuSmemWords = (1 << 18) / 4;
 alignas(16) static int32_t g_smem[kEmuSmemWords];
 """
 
 _HARNESS = r"""
-// Run `body` as `blocks` blocks of `threads` std::threads, one block at a time.
+// Run `body` as the blocks of `shape`, one block at a time, each as
+// `shape.threads` std::threads; 2 when the emulation cannot hold the shape.
 template <class F>
-static void emu_grid(int blocks, int threads, F body) {
-  std::barrier<> bar(threads);
+static int emu_grid(Shape shape, F body) {
+  if (shape.threads % 32 || shape.threads / 32 > kEmuMaxWarps || shape.smem > kEmuSmemWords * 4) return 2;
+  std::barrier<> bar(shape.threads);
   g_block_bar = &bar;
   std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
-  for (int w = 0; w < threads / 32; ++w) {
+  for (int w = 0; w < shape.threads / 32; ++w) {
     warp_bars.emplace_back(new std::barrier<>(32));
     g_warp_bar[w] = warp_bars.back().get();
   }
   std::vector<std::thread> ts;
-  for (int t = 0; t < threads; ++t)
+  for (int t = 0; t < shape.threads; ++t)
     ts.emplace_back([&, t] {
       threadIdx.x = t;
-      for (int b = 0; b < blocks; ++b) {
+      for (int b = 0; b < shape.blocks; ++b) {
         blockIdx.x = b;
         body();
         bar.arrive_and_wait();
       }
     });
   for (auto& t : ts) t.join();
+  return 0;
 }
-
-static_assert(kWalkSmem <= kEmuSmemWords * 4 && kWhenSmem <= kEmuSmemWords * 4, "emulated shared memory");
 
 extern "C" int emu_chain(int mode, int g, int reps, const int32_t* x, int32_t* out) {
   ChainKernel k = chain_for(mode, g);
   if (!k) return 1;
-  emu_grid(1, kChainThreads, [&] { k(reps, x, out, nullptr); });
-  return 0;
+  return emu_grid(chain_shape(mode, g), [&] { k(reps, x, out, nullptr); });
 }
 
+extern "C" int emu_chain_blocks(int mode, int g) { return chain_shape(mode, g).blocks; }
+extern "C" int emu_chain_threads(int mode, int g) { return chain_shape(mode, g).threads; }
+
 extern "C" int emu_walk8(int groups, int nrow, const int32_t* clen, const int32_t* cmds, int32_t* rec, int32_t* meta) {
-  emu_grid(groups, kWarp, [&] { walk8_kernel(nrow, clen, cmds, rec, meta, nullptr); });
-  return 0;
+  return emu_grid(walk8_shape(groups), [&] { walk8_kernel(nrow, clen, cmds, rec, meta, nullptr); });
 }
 
 extern "C" int emu_walk_scalar(int blocks, int64_t rounds, const int32_t* clen, const int32_t* cmds, int32_t* meta) {
-  emu_grid(blocks, kWalkThreads, [&] { walk_scalar_kernel(rounds, clen, cmds, meta, nullptr); });
-  return 0;
+  return emu_grid(walk_scalar_shape(blocks), [&] { walk_scalar_kernel(rounds, clen, cmds, meta, nullptr); });
 }
 
 extern "C" int emu_drain(int mode, int nrec, int nsrc, const int32_t* q0, const int32_t* r, const int32_t* fld,
                          const int32_t* src, int32_t* out) {
   DrainKernel k = drain_for(mode);
   if (!k) return 1;
-  emu_grid(1, mode == kDrainSerial ? kLanes : kDrain8Threads, [&] { k(nrec, nsrc, q0, r, fld, src, out, nullptr); });
-  return 0;
+  return emu_grid(drain_shape(mode), [&] { k(nrec, nsrc, q0, r, fld, src, out, nullptr); });
 }
 
 extern "C" int emu_scalar_loop(int work, int unroll, int cond, int chain, int n, const int32_t* x, int32_t* out) {
   ScalarKernel k = scalar_loop_for(work, unroll, cond, chain);
   if (!k) return 1;
-  emu_grid(1, kWarp, [&] { k(n, x, out, nullptr); });
-  return 0;
+  return emu_grid(scalar_loop_shape(), [&] { k(n, x, out, nullptr); });
 }
 
 extern "C" int emu_when_drain(int mode, int ngroups, const int32_t* q, const int32_t* r, const int32_t* src,
                               int32_t* out) {
   WhenKernel k = when_for(mode);
   if (!k) return 1;
-  emu_grid(1, kLanes, [&] { k(ngroups, q, r, src, out, nullptr); });
-  return 0;
+  return emu_grid(when_shape(), [&] { k(ngroups, q, r, src, out, nullptr); });
 }
 """
 
@@ -197,13 +204,16 @@ def emu(tmp_path_factory):
     cpp, so = d / "exp_vector_walk_host.cpp", d / "exp_vector_walk_host.so"
     cpp.write_text(_emulation_source())
     proc = subprocess.run(
-        ["g++", "-std=c++20", "-O1", "-pthread", "-fPIC", "-shared", "-Wall", str(cpp), "-o", str(so)],
+        ["g++", "-std=c++20", "-O1", "-fno-strict-aliasing", "-pthread", "-fPIC", "-shared", "-Wall", str(cpp),
+         "-o", str(so)],
         capture_output=True, text=True,
     )
     assert proc.returncode == 0, proc.stderr
     lib = ctypes.CDLL(str(so))
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.emu_chain.argtypes = [i, i, i, p, p]
+    lib.emu_chain_blocks.argtypes = [i, i]
+    lib.emu_chain_threads.argtypes = [i, i]
     lib.emu_walk8.argtypes = [i, i, p, p, p, p]
     lib.emu_walk_scalar.argtypes = [i, i64, p, p, p]
     lib.emu_drain.argtypes = [i, i, i, p, p, p, p, p]
@@ -221,14 +231,36 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def _chain(emu, x, reps, mode):
+    out = _Out(x.shape)
+    assert emu.emu_chain(pt.CHAIN_MODES.index(mode), x.shape[0], reps, _ptr(x), out.ptr) == 0
+    return out.get()
+
+
+@pytest.mark.parametrize("reps", [0, 1, 23, 200])
 @pytest.mark.parametrize("g", [1, 4])
 @pytest.mark.parametrize("mode", pt.CHAIN_MODES)
-def test_chain(emu, mode, g):
+def test_chain(emu, mode, g, reps):
+    """Every block of the source's grid: reduce's 8 (one a sublane row, a
+    warp a chain), the other modes' 32 one-warp blocks (4 columns of 8
+    sublanes each)."""
+    m = pt.CHAIN_MODES.index(mode)
+    want = (8, 32 * g) if mode == "reduce" else (pt.LANES // 4, 32)
+    assert (emu.emu_chain_blocks(m, g), emu.emu_chain_threads(m, g)) == want
     x = np.random.default_rng(2).integers(0, 1 << 20, (g, 8, pt.LANES)).astype(np.int32)
-    for reps in (0, 23):
-        out = _Out(x.shape)
-        assert emu.emu_chain(pt.CHAIN_MODES.index(mode), g, reps, _ptr(x), out.ptr) == 0
-        np.testing.assert_array_equal(out.get(), pt.chain(reps, _t(x), mode).numpy())
+    np.testing.assert_array_equal(_chain(emu, x, reps, mode), pt.chain(reps, _t(x), mode).numpy())
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_chain_axis1_mostly_past_the_sublanes(emu, g):
+    """Axis 1 where ~90% of the indices are >= 8 (those read INT_MIN) and
+    the rest pick sublanes 0-7 of their own column, through the shuffle."""
+    rng = np.random.default_rng(8)
+    x = rng.integers(0, 1 << 20, (g, 8, pt.LANES)).astype(np.int32)
+    low = rng.random(x.shape) < 0.1
+    x = np.where(low, x & ~127 | (x & 7), x | 8).astype(np.int32)
+    for reps in (1, 2, 23):
+        np.testing.assert_array_equal(_chain(emu, x, reps, "axis1"), pt.chain(reps, _t(x), "axis1").numpy())
 
 
 def _walk8(emu, clen, cmds_g, nrow):
@@ -310,11 +342,35 @@ def test_unknown_variants_are_refused(emu):
     assert emu.emu_drain(3, 8, pt.NSRC, *(_ptr(x),) * 4, out.ptr) == 1
 
 
+def _when(emu, knob, q, r, src, mode):
+    out = _Out((pt.WHEN_OUT_ROWS, pt.LANES))
+    assert emu.emu_when_drain(pt.WHEN_MODES.index(mode), knob // 8, *map(_ptr, (q, r, src)), out.ptr) == 0
+    np.testing.assert_array_equal(out.get(), pt.when_drain(knob, _t(q), _t(r), _t(src), mode).numpy())
+
+
 @pytest.mark.parametrize("mode", pt.WHEN_MODES)
 def test_when_drain(emu, mode):
     q, r, src = when_inputs()
     r[7] = 600  # a row outside the output: clamped
     for knob in (100, pt.WHEN_RECORDS + 64):
-        out = _Out((pt.WHEN_OUT_ROWS, pt.LANES))
-        assert emu.emu_when_drain(pt.WHEN_MODES.index(mode), knob // 8, *map(_ptr, (q, r, src)), out.ptr) == 0
-        np.testing.assert_array_equal(out.get(), pt.when_drain(knob, _t(q), _t(r), _t(src), mode).numpy())
+        _when(emu, knob, q, r, src, mode)
+
+
+@pytest.mark.parametrize("mode", pt.WHEN_MODES)
+def test_when_drain_later_record_wins(emu, mode):
+    """Every record stores to rows 5 and 6 (and 7 when it crosses 128), so
+    each lane's last record in order must win, across groups and passes:
+    a kernel that let a later record's store pass an earlier one's differs."""
+    q, r, src = when_inputs(seed=12)
+    r[:] = np.random.default_rng(12).integers(5, 7, r.shape)
+    for knob in (8, 96, pt.WHEN_RECORDS + 24):
+        _when(emu, knob, q, r, src, mode)
+
+
+@pytest.mark.parametrize("mode", pt.WHEN_MODES)
+def test_when_drain_clamps_rows(emu, mode):
+    """Rows past either end of the output, and r + 1 wrapping at INT_MAX,
+    are clamped into it, as the plain version clamps them."""
+    q, r, src = when_inputs()
+    r[: 8 * 64 : 4] = np.resize(np.array(WHEN_EDGE_ROWS, np.int32), 128)
+    _when(emu, 8 * 64, q, r, src, mode)
