@@ -76,7 +76,10 @@ non-zero:
               counts reset just before and read just after,
               tools/exp_vector_walk.run times each at the script's two
               knobs: ns and cycles a step by the slope, one line a variant
-              and a {"probes": [...]} line
+              and a {"probes": [...]} line; last the one-block L2 read
+              (tools/exp_vector_walk.l2_rate, which ports no TPU kernel),
+              held exactly against its plain version at 1 MiB and 4 MiB,
+              and its bytes a cycle, which bound a one-block drain
  13. stream   the reference's large config (bench.py's stream_large stage):
               676,000,000 bytes of the corpus mix through compress_stream and
               uncompress_stream on io.BytesIO, 128 blocks a frame, on the
@@ -1268,7 +1271,8 @@ def main() -> int:
     probes = exp_vector_walk.probes("all", dev)
     gates = {p.name: exp_vector_walk.gate(p) for p in probes}
     print(f"[12 probes] {len(probes)} variants of P1-P6 identical to their plain versions at their gate knobs "
-          f"(P2 and P3 also on the reference generator's stalled data)", flush=True)
+          f"(P2 and P3 also on the reference generator's stalled data, P4 on fields drawn per lane with repeated "
+          f"rows and on rows past the arrays' ends, P6 on rows past the output's ends)", flush=True)
     for variant, g in gates.items():
         print(f"[12 probes] {variant:30s} at knob {g['plain_knob']}: kernel {g['kernel_ms']:.4f} ms, "
               f"plain version {g['plain_ms']:.4f} ms", flush=True)
@@ -1278,6 +1282,9 @@ def main() -> int:
     probe_launches = dict(cuda_probes.launches)
     for key, n in probe_launches.items():
         check(n > 0, f"phase 12 did not launch the {key} kernel")
+    rate = exp_vector_walk.l2_rate(dev)
+    print(f"[12 probes] one-block L2 read identical to its plain version at {rate['tiles']} tiles of 16 KiB: "
+          f"{rate['bytes_per_cycle']:.2f} bytes a cycle, {rate['gb_per_s']:.2f} GB/s", flush=True)
     print(f"[12 probes] on {card}: launches {probe_launches}; phase {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"probes": probe_rows}), flush=True)
     probe_entries = []

@@ -159,65 +159,219 @@ chain_kernel(int reps, const int32_t* __restrict__ x, int32_t* __restrict__ out,
   }
 }
 
+// ------------------------------------------------------------------ copies
+// Asynchronous copies from device memory into shared memory (cp.async): rows
+// 16 bytes a piece, single words 4, in groups that
+// a thread commits and later waits for, oldest first. A wait covers only the
+// waiting thread's own copies, so a barrier follows it before any thread
+// reads what landed. Off the card (the host emulation) a copy is a plain
+// copy and a wait does nothing, unless the includer defines the three
+// SNAPPY_HOST_ hooks (the emulation lands a group when its thread waits).
+// The 32-bit address of a shared-memory word, as cp.async and st.shared take
+// it (off the card: its byte offset into the block's shared words).
+__device__ __forceinline__ uint32_t shared_addr(const int32_t* p) {
+#ifdef __CUDA_ARCH__
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+#else
+  return static_cast<uint32_t>(reinterpret_cast<const char*>(p) - reinterpret_cast<const char*>(shared_words()));
+#endif
+}
+
+#ifndef __CUDA_ARCH__
+// The shared word at address `at` as a pointer, off the card.
+__device__ __forceinline__ int32_t* host_word(uint32_t at) {
+  return reinterpret_cast<int32_t*>(reinterpret_cast<char*>(shared_words()) + at);
+}
+#endif
+
+#ifndef SNAPPY_HOST_COPY
+#define SNAPPY_HOST_COPY(dst, src, n) \
+  for (int i_ = 0; i_ < (n); ++i_) (dst)[i_] = (src)[i_]
+#define SNAPPY_HOST_COMMIT()
+#define SNAPPY_HOST_WAIT(n)
+#endif
+
+__device__ __forceinline__ void copy_async16(uint32_t dst, const int32_t* src) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(dst), "l"(src));
+#else
+  SNAPPY_HOST_COPY(host_word(dst), src, 4);
+#endif
+}
+
+__device__ __forceinline__ void copy_async4(uint32_t dst, const int32_t* src) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(dst), "l"(src));
+#else
+  SNAPPY_HOST_COPY(host_word(dst), src, 1);
+#endif
+}
+
+__device__ __forceinline__ void copy_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#else
+  SNAPPY_HOST_COMMIT();
+#endif
+}
+
+// Wait until at most N of this thread's newest copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+#else
+  SNAPPY_HOST_WAIT(N);
+#endif
+}
+
+// Copy kWords words from `src`, 16-byte aligned (the wrappers in
+// ops/cuda_probes.py see to it), to shared address `dst`, 16 bytes a piece,
+// thread `tid` of kThreads taking every kThreads-th piece.
+template <int kWords, int kThreads>
+__device__ __forceinline__ void copy_words(uint32_t dst, const int32_t* src, int tid) {
+  static_assert(kWords % (4 * kThreads) == 0, "a copy is whole 16-byte pieces, the same number a thread");
+#pragma unroll
+  for (int i = 0; i < kWords / (4 * kThreads); ++i)
+    copy_async16(dst + (i * kThreads + tid) * 16, src + (i * kThreads + tid) * 4);
+}
+
+// Store v to the shared word at address `at` where a < b, unsigned: a
+// predicated st.shared, never a branch around the store.
+__device__ __forceinline__ void store_shared_below(uint32_t a, uint32_t b, uint32_t at, int32_t v) {
+#ifdef __CUDA_ARCH__
+  asm volatile("{\n\t.reg .pred p;\n\tsetp.lt.u32 p, %0, %1;\n\t@p st.shared.b32 [%2], %3;\n\t}"
+               :: "r"(a), "r"(b), "r"(at), "r"(v) : "memory");
+#else
+  if (a < b) *reinterpret_cast<int32_t*>(reinterpret_cast<char*>(shared_words()) + at) = v;
+#endif
+}
+
+// Lane l's word of row `row` of out (out_l = out + l) gets v where a < b,
+// unsigned: a store that every lane issues and only those lanes perform, the
+// reference's masked store. No branch, so the compiler cannot sink the
+// stored value's load behind one (a load inside a divergent branch waits out
+// its whole latency before the store, record after record); the compare and
+// the row's address are the asm's own, one instruction each.
+__device__ __forceinline__ void store_below(uint32_t a, uint32_t b, int32_t* out_l, uint32_t row, int32_t v) {
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t.reg .b64 at;\n\tsetp.lt.u32 p, %0, %1;\n\t"
+      "mad.wide.u32 at, %3, 512, %2;\n\t@p st.global.b32 [at], %4;\n\t}"
+      :: "r"(a), "r"(b), "l"(out_l), "r"(row), "r"(v));
+#else
+  if (a < b) out_l[row * kLanes] = v;
+#endif
+}
+
 // ------------------------------------------------------------------ P2
-// One warp a group: lanes 0-7 are the group's 8 walks (the others vote with
-// them and walk nothing). A row of 8 x 128 command words is staged in shared
-// memory while the next row's loads are in flight in registers; the record
-// tile (8 x 128) lives in shared memory. Per row, bursts of 4 steps run while
-// any walk's ip lies in the row (a warp vote), at most kMaxBursts; after the
-// row, a vote on any cursor at 96 flushes the tile. A group whose walks do
-// not each have one length over their 128 lanes is refused: meta (-1, -1),
-// records all INT_MIN.
+// One warp a group: lane l walks walk l mod 8, so each walk runs in 4 lanes
+// that compute the same values from the same words (a load or an append of
+// theirs is one address, served once), and no lane leaves the warp's path.
+// What bounds it is one step's dependent chain: the command word's shared
+// load, its decode and the next word's address. The step is branch-free:
+// `act` (the walk's position d = ip - 128 r in [0, lim), in row r and below
+// its length) is a mask that zeroes the advance, the append is a predicated
+// st.shared, and the window load is unconditional. The next word's address
+// is built apart from ip, mod 128 words: (address + 4 cx + (w >> 2)) & 0x1FC
+// | the row's 512-byte-aligned base, four integer ops after the load, where
+// w >> 2 stands for 4 ln (the bits it has beyond ln are multiples of 512 or
+// below 4, which the mask drops). The exact position, op, the record and the
+// next act are off that chain: the next step's word is loaded as soon as its
+// address is known, before the rest of the step issues. The 8 appends of a
+// step go to the record tile held position-major (word 8 pos + walk), so
+// they fall in 8 banks whatever the cursors; a flush writes it back
+// walk-major, the tile's layout in device memory. Rows of command words
+// arrive in a ring of kWalkRows rows in shared memory by cp.async,
+// kWalkRows - 1 rows ahead. Per row, bursts of 4 steps run while any walk is
+// active, at most kMaxBursts; the vote that ends them is taken on the act of
+// a burst's last step, which its third step gives, so it is off the chain (a
+// burst it starts for nothing changes nothing: a walk whose position leaves
+// the row stays out of it). After a row, a vote on any cursor at 96 flushes
+// the tile. A group whose walks do not each have one length over their 128
+// lanes is refused: meta (-1, -1), records all INT_MIN.
+constexpr int kWalkRows = 4;
+
 __global__ void __launch_bounds__(kWarp)
 walk8_kernel(int nrow, const int32_t* __restrict__ clen, const int32_t* __restrict__ cmds,
              int32_t* __restrict__ rec, int32_t* __restrict__ meta, long long* __restrict__ cycles) {
-  int32_t* row_s = shared_words();
-  int32_t* acc = row_s + kTile;
-  const int grp = blockIdx.x, lane = threadIdx.x;
+  int32_t* rows_s = shared_words();            // [kWalkRows][8][128]
+  int32_t* acc = rows_s + kWalkRows * kTile;   // [128 positions][8 walks]
+  const char* smem = reinterpret_cast<const char*>(rows_s);
+  const int grp = blockIdx.x, lane = threadIdx.x, walk = lane & 7;
   const long long start = clock64();
   const int32_t* cl = clen + int64_t(grp) * kTile;
   const int32_t* cg = cmds + int64_t(grp) * kRows * kTile;
   int32_t* rg = rec + int64_t(grp) * kTiles * kTile;
 
-  bool same = true;
-  for (int i = lane; i < kTile; i += kWarp) same = same && cl[i] == cl[i & ~(kLanes - 1)];
+  bool same = true;  // every load independent of the last (no short cut)
+#pragma unroll
+  for (int m = 0; m < kTile / kWarp; ++m) same &= cl[m * kWarp + lane] == cl[m * kWarp & ~(kLanes - 1)];
   same = __all_sync(kFull, same);
-  const bool walker = lane < 8;
-  const int32_t my_clen = walker ? cl[lane * kLanes] : 0;
-  const int32_t* win = row_s + (walker ? lane : 0) * kLanes;
+  const int32_t my_clen = cl[walk * kLanes];
   for (int i = lane; i < kTile; i += kWarp) acc[i] = 0;
   const int rows = same ? nrow : 0;
+  const uint32_t rows_at = shared_addr(rows_s), acc_at = rows_at + (kWalkRows * kTile + walk) * 4;
   int32_t ip = 0, op = 0, cur = 0;
   int tile = 0;
-  int32_t next[kTile / kWarp];
-  if (rows > 0)
-    for (int k = 0; k < kTile / kWarp; ++k) next[k] = cg[lane + kWarp * k];
+  for (int r = 0; r < kWalkRows - 1; ++r) {
+    if (r < rows) copy_words<kTile, kWarp>(rows_at + r * kTile * 4, cg + int64_t(r) * kTile, lane);
+    copy_commit();
+  }
   for (int r = 0; r < rows; ++r) {
-    __syncwarp();
-    for (int k = 0; k < kTile / kWarp; ++k) row_s[lane + kWarp * k] = next[k];
-    __syncwarp();
-    if (r + 1 < rows)
-      for (int k = 0; k < kTile / kWarp; ++k) next[k] = cg[int64_t(r + 1) * kTile + lane + kWarp * k];
-    for (int b = 0; b < kMaxBursts; ++b) {
-      const bool act0 = walker && (static_cast<uint32_t>(ip) >> 7) == static_cast<uint32_t>(r) && ip < my_clen;
-      if (!__any_sync(kFull, act0)) break;
+    copy_wait<kWalkRows - 2>();
+    __syncwarp();  // row r has landed; every lane is done with row r - 1's slot
+    const int ahead = r + kWalkRows - 1;
+    if (ahead < rows)
+      copy_words<kTile, kWarp>(rows_at + ahead % kWalkRows * kTile * 4, cg + int64_t(ahead) * kTile, lane);
+    copy_commit();
+    const uint32_t base = uint32_t(r % kWalkRows * kTile + walk * kLanes) * 4;  // 512-byte aligned
+    const int32_t rbase = r * kLanes;
+    // The walk is active while d = ip - rbase lies in [0, lim): in row r and
+    // below its length.
+    const int64_t room = int64_t(my_clen) - rbase;
+    const uint32_t lim = room <= 0 ? 0u : room < kLanes ? uint32_t(room) : uint32_t(kLanes);
+    int32_t d = ip - rbase;
+    uint32_t at = base | (uint32_t(ip) << 2 & 0x1FC);
+    bool act = uint32_t(d) < lim;
+    // Two masks: from one (w & mask), nvcc derives the literal bit by a
+    // shift, a mask and a compare on the chain; from its own, one LOP3 sets
+    // a predicate.
+    int32_t m7 = act ? 7 : 0, m8 = act ? 8 : 0;
+    bool more = __any_sync(kFull, act);
+    int32_t w = *reinterpret_cast<const int32_t*>(smem + at);
+    for (int b = 0; more && b < kMaxBursts; ++b) {
+#pragma unroll
       for (int k = 0; k < 4; ++k) {
-        if (walker && (static_cast<uint32_t>(ip) >> 7) == static_cast<uint32_t>(r) && ip < my_clen) {
-          const int32_t w = win[ip & 127];
-          const int32_t cx = w & 7, lit = (w >> 3) & 1, ln = (w >> 4) & 0x7F;
-          if (cur < kLanes) acc[lane * kLanes + cur] = lit ? (ip | kIntMin) : ip;
-          ++cur;
-          ip = add32(ip, cx + lit * ln);
-          op = add32(op, ln);
-        }
+        const int32_t cx = w & m7;
+        const bool lit = (w & m8) != 0;  // a literal, and act
+        at = (at + uint32_t(cx) * 4 + (lit ? uint32_t(w >> 2) : 0u)) & 0x1FC | base;
+        // The next step's word is loaded at once; the rest of this step
+        // issues while it is in flight (one past the row's end is read and
+        // dropped).
+        const int32_t next = *reinterpret_cast<const int32_t*>(smem + at);
+        const int32_t ln = (w >> 4) & 0x7F;
+        store_shared_below(uint32_t(cur), act ? kLanes : 0u, acc_at + uint32_t(cur) * 32,
+                           (rbase + d) | (static_cast<int32_t>(uint32_t(w) << 28) & kIntMin));
+        cur += act;
+        op = add32(op, act ? ln : 0);
+        d += cx + (lit ? ln : 0);
+        act = uint32_t(d) < lim;
+        m7 = act ? 7 : 0;
+        m8 = act ? 8 : 0;
+        if (k == 2) more = __any_sync(kFull, act);
+        w = next;
       }
     }
-    if (__any_sync(kFull, walker && cur >= 96)) {
+    ip = rbase + d;
+    if (__any_sync(kFull, cur >= 96)) {
       __syncwarp();
-      int32_t* dst = rg + (tile < kTiles - 1 ? tile : kTiles - 1) * kTile;
-      for (int i = lane; i < kTile; i += kWarp) {
-        dst[i] = acc[i];
-        acc[i] = 0;
+      // word m * 32 + lane of the tile: position 4 m + lane / 8 of walk lane % 8
+      int32_t* dst = rg + (tile < kTiles - 1 ? tile : kTiles - 1) * kTile + walk * kLanes + lane / 8;
+#pragma unroll 8
+      for (int m = 0; m < kTile / kWarp; ++m) {
+        dst[4 * m] = acc[m * kWarp + lane];
+        acc[m * kWarp + lane] = 0;
       }
       __syncwarp();
       cur = 0;
@@ -226,10 +380,12 @@ walk8_kernel(int nrow, const int32_t* __restrict__ clen, const int32_t* __restri
   }
   __syncwarp();
   const int last = tile < kTiles - 1 ? tile : kTiles - 1;
-  for (int i = last * kTile + lane; i < kTiles * kTile; i += kWarp)
-    rg[i] = same && i < (last + 1) * kTile ? acc[i - last * kTile] : kIntMin;
-  const int32_t max_op = __reduce_max_sync(kFull, walker ? op : kIntMin);
-  const int32_t max_cur = __reduce_max_sync(kFull, walker ? cur : kIntMin);
+  int32_t* dst = rg + last * kTile + walk * kLanes + lane / 8;
+#pragma unroll 8
+  for (int m = 0; m < kTile / kWarp; ++m) dst[4 * m] = same ? acc[m * kWarp + lane] : kIntMin;
+  for (int i = (last + 1) * kTile + lane; i < kTiles * kTile; i += kWarp) rg[i] = kIntMin;
+  const int32_t max_op = __reduce_max_sync(kFull, op);
+  const int32_t max_cur = __reduce_max_sync(kFull, cur);
   if (lane == 0) {
     meta[2 * grp] = same ? max_op : -1;
     meta[2 * grp + 1] = same ? max_cur : -1;
@@ -278,72 +434,188 @@ walk_scalar_kernel(int64_t rounds, const int32_t* __restrict__ clen, const int32
 }
 
 // ------------------------------------------------------------------ P4
-// One block. drain8: warp k computes record k of each group of 8 on its 128
-// lanes (gather through its staged row in shared memory; logroll as 7
-// stages of shuffles, each a rotate right by 2**b where the lane's shift has
-// bit b); then the first 128 threads store the group's 8 records in order,
-// each thread its own lane, so a later record to the same row wins.
-// serial: 128 threads, one lane each, one record after another, reading
-// the source rows from device memory (256 KiB do not fit shared memory).
+// One block, as a decode block drains its own records. Records do not
+// depend on each other; only each output lane's stores must stay in record
+// order, so that a later record to a row wins. What bounds a one-block drain
+// is what one SM takes in (512 bytes of source row and, for drain8, 512 of
+// fields a record) and issues, not a chain; a load waited for before each
+// group, two block barriers a group and stores behind a divergent branch
+// left 265-420 cycles a record (NVIDIA H100 80GB HBM3, 700 W). Here every
+// load arrives through a ring of kDrainStages batch stages in shared memory,
+// a batch two groups of 8 records, filled by cp.async kDrainStages - 1
+// batches ahead; q0 and r ride a ring of their own kDrainStages - 1 batches
+// further ahead, so a source row's address is in shared memory when its copy
+// is issued. One barrier a batch hands a stage on and frees the one before
+// it. Stores are predicated st.global (store_below), never a branch, and
+// each output lane's are issued by one thread in record order. Rows are
+// clamped into their arrays by DPX: q0 (and q0 + 1, q0 + 2) into the source,
+// r (and r + 1) into the output, each sum wrapping as the reference's int32
+// arithmetic does.
+//
+// drain8 (8 warps): between two barriers warp k computes two records, k of
+// each group of the batch, as two independent chains, 4 lanes a thread
+// (gather through the staged row; logroll as 7 stages of shuffles, each a
+// rotate right by 2**b where the lane's shift has bit b), and writes (z +
+// ph, the clamped row or kNoRow where the lane keeps nothing) into one of
+// two slots; threads 0-127, one output lane each, store the previous batch's
+// 16 records from the other slot while the warps compute this one. serial (4
+// warps): one thread a lane computes and stores every record itself, with
+// lane 0's fields: the merge at ph is one shared load from the staged row q0
+// or q0 + 1, its second store's the word 128 later; 8 threads copy each
+// record's three rows, one q0 load each.
+// tools/drain_parts.py builds copies with SNAPPY_DRAIN_STORES=0 (no
+// stores) or also SNAPPY_DRAIN_COMPUTE=0 (no drain8 compute) to time what is
+// left; their outputs are wrong.
+#ifndef SNAPPY_DRAIN_STORES
+#define SNAPPY_DRAIN_STORES 1
+#endif
+#ifndef SNAPPY_DRAIN_COMPUTE
+#define SNAPPY_DRAIN_COMPUTE 1
+#endif
+constexpr int kDrainStages = 6;                // D: batches in flight
+constexpr int kBatch = 16;                     // records a batch: two groups of 8
+constexpr int kQrSlots = 2 * kDrainStages;     // batches of q0 and r held
+constexpr int kQrWords = 2 * kBatch;           // a batch's 16 q0, then its 16 r
+constexpr uint32_t kNoRow = 0xFFFFFFFFu;
 constexpr int kDrain8Threads = 8 * kWarp;
-constexpr int64_t kDrain8Smem = int64_t(3) * kTile * 4;
+constexpr int kDrain8Stage = 2 * kBatch * kLanes;      // 16 field rows, then 16 source rows
+constexpr int kSerialStage = 3 * kBatch * kLanes + kBatch;  // 16 x 3 source rows, then 16 lane-0 fields
+constexpr int64_t kDrain8Smem =
+    (int64_t(kDrainStages) * kDrain8Stage + 2 * 2 * kBatch * kLanes + kQrSlots * kQrWords) * 4;
+constexpr int64_t kSerialSmem = (int64_t(kDrainStages) * kSerialStage + kQrSlots * kQrWords) * 4;
+
+// q0 and r of the first `batches` batches into their slots, by plain loads:
+// the ring's first fill, before the copies that need their q0. Only records
+// below nvalid are read.
+__device__ __forceinline__ void qr_fill(int32_t* qr, const int32_t* q0, const int32_t* r, int batches, int nvalid,
+                                        int tid, int nthreads) {
+  for (int i = tid; i < batches * kQrWords; i += nthreads) {
+    const int b = i / kQrWords, k = i % kQrWords, rc = b * kBatch + k % kBatch;
+    if (rc < nvalid) qr[b % kQrSlots * kQrWords + k] = k < kBatch ? q0[rc] : r[rc];
+  }
+}
+
+// q0 and r of batch h into its slot of the ring at shared address qr_at, by
+// threads 0-31; only records below nvalid.
+__device__ __forceinline__ void qr_copy(uint32_t qr_at, const int32_t* q0, const int32_t* r, int h, int nvalid,
+                                        int tid) {
+  const int rc = h * kBatch + tid % kBatch;
+  if (tid < kQrWords && rc < nvalid)
+    copy_async4(qr_at + (h % kQrSlots * kQrWords + tid) * 4, tid < kBatch ? q0 + rc : r + rc);
+}
 
 template <int kMode>
 __global__ void __launch_bounds__(kDrain8Threads)
 drain8_kernel(int nrec, int nsrc, const int32_t* __restrict__ q0, const int32_t* __restrict__ r,
               const int32_t* __restrict__ fld, const int32_t* __restrict__ src, int32_t* __restrict__ out,
               long long* __restrict__ cycles) {
-  int32_t* stage = shared_words();
-  int32_t* zs = stage + kTile;
-  int32_t* ks = zs + kTile;
+  int32_t* stages = shared_words();
+  int2* zs = reinterpret_cast<int2*>(stages + kDrainStages * kDrain8Stage);  // [2][16][128]
+  int32_t* qr = stages + kDrainStages * kDrain8Stage + 2 * 2 * kBatch * kLanes;
   const int tid = threadIdx.x, k = tid / kWarp, t = tid % kWarp;
-  const int last_out = nsrc + 7;
+  const int last_src = nsrc - 1, last_out = nsrc + 7, groups = nrec / 8, nvalid = groups * 8;
+  const int batches = (groups + 1) / 2;
+  const uint32_t stages_at = shared_addr(stages), qr_at = shared_addr(qr);
   const long long start = clock64();
   for (int i = tid; i < (nsrc + 8) * kLanes; i += kDrain8Threads) out[i] = kIntMin;
+  qr_fill(qr, q0, r, batches < kDrainStages - 1 ? batches : kDrainStages - 1, nvalid, tid, kDrain8Threads);
   __syncthreads();
-  for (int grp = 0; grp < nrec / 8; ++grp) {
-    const int rc = grp * 8 + k;
-    const int32_t* row = src + clamp_index(q0[rc], nsrc - 1) * kLanes;
-    const int32_t* f = fld + int64_t(rc) * kLanes;
-    int32_t z[4];
-    for (int j = 0; j < 4; ++j) z[j] = row[t + kWarp * j];
-    if (kMode == kDrainGather) {
-      for (int j = 0; j < 4; ++j) stage[k * kLanes + t + kWarp * j] = z[j];
-      __syncwarp();
-      for (int j = 0; j < 4; ++j) {
-        const int l = t + kWarp * j;
-        z[j] = stage[k * kLanes + ((l + (f[l] & 127)) & 127)];
+  // Batch h's 16 field rows and the 16 source rows its q0 name (warp k copies
+  // records k and 8 + k's) into stage h mod D; q0 and r of batch h + D - 1.
+  auto issue = [&](int h) {
+    const uint32_t st = stages_at + h % kDrainStages * kDrain8Stage * 4;
+    const int32_t* qs = qr + h % kQrSlots * kQrWords;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int g = 2 * h + half;
+      if (g < groups) {
+        copy_words<kTile, kDrain8Threads>(st + half * kTile * 4, fld + int64_t(g) * kTile, tid);
+        const int32_t* row = src + int64_t(__vimin_s32_relu(qs[8 * half + k], last_src)) * kLanes;
+        copy_words<kLanes, kWarp>(st + (kBatch + 8 * half + k) * kLanes * 4, row, t);
       }
-    } else {
-      int32_t sh[4];
-      for (int j = 0; j < 4; ++j) sh[j] = f[t + kWarp * j] & 127;
-      for (int b = 0; b < 7; ++b) {
-        const int s = 1 << b;
-        int32_t rolled[4];
-        if (s < kWarp) {
-          int32_t y[4];
-          for (int j = 0; j < 4; ++j) y[j] = __shfl_sync(kFull, z[j], (t - s) & (kWarp - 1));
-          for (int j = 0; j < 4; ++j) rolled[j] = t >= s ? y[j] : y[(j + 3) & 3];
+    }
+    if (h + kDrainStages - 1 < batches) qr_copy(qr_at, q0, r, h + kDrainStages - 1, nvalid, tid);
+    copy_commit();
+  };
+  for (int h = 0; h < kDrainStages - 1; ++h) issue(h);
+  int32_t* out_l = out + tid;
+  for (int b = 0; b <= batches; ++b) {
+    copy_wait<kDrainStages - 2>();
+    __syncthreads();  // batch b has landed; batch b - 1 is computed, b - 2 stored
+    issue(b + kDrainStages - 1);
+    if (SNAPPY_DRAIN_STORES && b > 0 && tid < kLanes) {
+      const int2* z = zs + (b - 1) % 2 * kBatch * kLanes + tid;
+#pragma unroll
+      for (int kk = 0; kk < kBatch; ++kk) {
+        const int2 v = z[kk * kLanes];
+        store_below(uint32_t(v.y), kNoRow, out_l, uint32_t(v.y), v.x);
+      }
+    }
+    if (SNAPPY_DRAIN_COMPUTE && b < batches) {  // records k and 8 + k of the batch, two chains at once
+      // Thread t's lanes: t + 32 i for the gather (a shift shared by the
+      // lanes then reads 32 consecutive words, one bank each), 4t + i for
+      // the logroll (a rotate by 4m is then one shuffle from thread t - m).
+      auto lane_of = [&](int i) { return kMode == kDrainGather ? t + kWarp * i : 4 * t + i; };
+      const int32_t* st = stages + b % kDrainStages * kDrain8Stage;
+      const int32_t* qs = qr + b % kQrSlots * kQrWords;
+      int32_t z[2][4], fv[2][4];
+      uint32_t orow[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rk = 8 * h + k;
+        orow[h] = 2 * b + h < groups ? __vimin_s32_relu(qs[kBatch + rk], last_out) : kNoRow;
+        const int32_t* f = st + rk * kLanes;
+        const int32_t* row = st + (kBatch + rk) * kLanes;
+        if (kMode == kDrainGather) {
+          for (int i = 0; i < 4; ++i) fv[h][i] = f[lane_of(i)];
+          for (int i = 0; i < 4; ++i) z[h][i] = row[(lane_of(i) + fv[h][i]) & 127];
         } else {
-          for (int j = 0; j < 4; ++j) rolled[j] = z[(j - s / kWarp) & 3];
+          const int4 f4 = reinterpret_cast<const int4*>(f)[t], z4 = reinterpret_cast<const int4*>(row)[t];
+          fv[h][0] = f4.x, fv[h][1] = f4.y, fv[h][2] = f4.z, fv[h][3] = f4.w;
+          z[h][0] = z4.x, z[h][1] = z4.y, z[h][2] = z4.z, z[h][3] = z4.w;
         }
-        for (int j = 0; j < 4; ++j) z[j] = (sh[j] >> b) & 1 ? rolled[j] : z[j];
+      }
+      if (kMode == kDrainLogroll) {
+        // Stage b rotates right by s = 2**b where the lane's shift has bit b:
+        // lane 4t + i takes lane 4t + i - s, which for s = 4m is word i of
+        // thread t - m (mod 32, the wrap included) and for s = 1, 2 a word of
+        // this thread or the one before.
+#pragma unroll
+        for (int bit = 0; bit < 7; ++bit) {
+          const int s = 1 << bit;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            int32_t rolled[4];
+            if (s < 4) {
+              for (int i = 0; i < 4; ++i)
+                rolled[i] = i >= s ? z[h][i - s] : __shfl_sync(kFull, z[h][4 + i - s], (t - 1) & (kWarp - 1));
+            } else {
+              for (int i = 0; i < 4; ++i) rolled[i] = __shfl_sync(kFull, z[h][i], (t - s / 4) & (kWarp - 1));
+            }
+            for (int i = 0; i < 4; ++i) z[h][i] = (fv[h][i] >> bit) & 1 ? rolled[i] : z[h][i];
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int32_t v[4], rows[4];
+        for (int i = 0; i < 4; ++i) {
+          const int32_t f = fv[h][i], ph = (f >> 7) & 127, lo = (f >> 14) & 127, n = (f >> 21) & 0x7F;
+          v[i] = add32(z[h][i], ph);
+          rows[i] = static_cast<int32_t>(uint32_t(lane_of(i) - lo) < uint32_t(n) ? orow[h] : kNoRow);
+        }
+        int2* zo = zs + b % 2 * kBatch * kLanes + (8 * h + k) * kLanes;
+        if (kMode == kDrainGather) {
+          for (int i = 0; i < 4; ++i) zo[lane_of(i)] = int2{v[i], rows[i]};
+        } else {
+          int4* zo4 = reinterpret_cast<int4*>(zo + 4 * t);
+          zo4[0] = int4{v[0], rows[0], v[1], rows[1]};
+          zo4[1] = int4{v[2], rows[2], v[3], rows[3]};
+        }
       }
     }
-    for (int j = 0; j < 4; ++j) {
-      const int l = t + kWarp * j;
-      const int32_t fv = f[l];
-      const int32_t ph = (fv >> 7) & 127, lo = (fv >> 14) & 127, n = (fv >> 21) & 0x7F;
-      const bool keep = l >= lo && l < lo + n;
-      zs[k * kLanes + l] = keep ? add32(z[j], ph) : 0;
-      ks[k * kLanes + l] = keep;
-    }
-    __syncthreads();
-    if (tid < kLanes)
-      for (int kk = 0; kk < 8; ++kk)
-        if (ks[kk * kLanes + tid]) out[clamp_index(r[grp * 8 + kk], last_out) * kLanes + tid] = zs[kk * kLanes + tid];
-    __syncthreads();
   }
+  __syncthreads();
   if (cycles && tid == 0) *cycles = clock64() - start;
 }
 
@@ -351,22 +623,56 @@ __global__ void __launch_bounds__(kLanes)
 drain_serial_kernel(int nrec, int nsrc, const int32_t* __restrict__ q0, const int32_t* __restrict__ r,
                     const int32_t* __restrict__ fld, const int32_t* __restrict__ src, int32_t* __restrict__ out,
                     long long* __restrict__ cycles) {
+  int32_t* stages = shared_words();
+  int32_t* qr = stages + kDrainStages * kSerialStage;
   const int l = threadIdx.x;
-  const int last_out = nsrc + 7;
+  const int last_src = nsrc - 1, last_out = nsrc + 7;
+  const int nvalid = (nrec + 7) / 8 * 8, batches = (nrec + kBatch - 1) / kBatch;  // read whole groups
+  const uint32_t stages_at = shared_addr(stages), qr_at = shared_addr(qr);
   const long long start = clock64();
   for (int i = l; i < (nsrc + 8) * kLanes; i += kLanes) out[i] = kIntMin;
+  qr_fill(qr, q0, r, batches < kDrainStages - 1 ? batches : kDrainStages - 1, nvalid, l, kLanes);
   __syncthreads();
-  for (int t = 0; t < nrec; ++t) {
-    const int32_t q = q0[t], f = fld[int64_t(t) * kLanes];
-    const int32_t shift = f & 127, ph = (f >> 7) & 127, lo = (f >> 14) & 127, n = (f >> 21) & 0x7F;
-    const int j = (l - shift) & 127;
-    const int32_t a = src[clamp_index(q, nsrc - 1) * kLanes + j];
-    const int32_t b = src[clamp_index(add32(q, 1), nsrc - 1) * kLanes + j];
-    const int32_t c = src[clamp_index(add32(q, 2), nsrc - 1) * kLanes + j];
-    const bool sel = j >= ph;
-    const int32_t rr = r[t];
-    if (l >= lo && l < lo + n) out[clamp_index(rr, last_out) * kLanes + l] = sel ? a : b;
-    if (l < lo + n - kLanes) out[clamp_index(add32(rr, 1), last_out) * kLanes + l] = sel ? b : c;
+  // Batch h's 48 source rows (q0, q0 + 1, q0 + 2 of each record; 8 threads
+  // a record, thread l copying part l mod 8 of its record's rows) and lane
+  // 0's field of each record into stage h mod D; q0 and r of batch h + D - 1.
+  auto issue = [&](int h) {
+    const int rk = l / 8, rc = h * kBatch + rk;
+    const uint32_t st = stages_at + h % kDrainStages * kSerialStage * 4;
+    if (rc < nvalid) {
+      const int32_t q = qr[h % kQrSlots * kQrWords + rk];
+#pragma unroll
+      for (int kk = 0; kk < 3; ++kk)
+        copy_words<kLanes, 8>(st + (rk * 3 + kk) * kLanes * 4,
+                              src + int64_t(__vimin_s32_relu(add32(q, kk), last_src)) * kLanes, l % 8);
+    }
+    if (l >= kLanes - kBatch && h * kBatch + l - (kLanes - kBatch) < nvalid)
+      copy_async4(st + (3 * kBatch * kLanes + l - (kLanes - kBatch)) * 4,
+                  fld + (int64_t(h) * kBatch + l - (kLanes - kBatch)) * kLanes);
+    if (h + kDrainStages - 1 < batches) qr_copy(qr_at, q0, r, h + kDrainStages - 1, nvalid, l);
+    copy_commit();
+  };
+  for (int h = 0; h < kDrainStages - 1; ++h) issue(h);
+  int32_t* out_l = out + l;
+  for (int b = 0; b < batches; ++b) {
+    copy_wait<kDrainStages - 2>();
+    __syncthreads();  // batch b has landed; batch b - 1 is stored
+    issue(b + kDrainStages - 1);
+    const int32_t* st = stages + b % kDrainStages * kSerialStage;
+    const int32_t* qs = qr + b % kQrSlots * kQrWords;
+#pragma unroll
+    for (int kk = 0; kk < kBatch; ++kk) {
+      const int32_t f = st[3 * kBatch * kLanes + kk];
+      const int32_t shift = f & 127, ph = (f >> 7) & 127, lo = (f >> 14) & 127;
+      const int32_t n = b * kBatch + kk < nrec ? (f >> 21) & 0x7F : 0;
+      const int j = (l - shift) & 127;
+      const int32_t* at = st + kk * 3 * kLanes + (j >= ph ? 0 : kLanes) + j;  // row q0 where j >= ph, else q0 + 1
+      const int32_t rr = qs[kBatch + kk];
+      if (SNAPPY_DRAIN_STORES) {
+        store_below(uint32_t(l - lo), uint32_t(n), out_l, __vimin_s32_relu(rr, last_out), at[0]);
+        store_below(uint32_t(l + kLanes - lo), uint32_t(n), out_l, __viaddmin_s32_relu(rr, 1, last_out), at[kLanes]);
+      }
+    }
   }
   __syncthreads();
   if (cycles && l == 0) *cycles = clock64() - start;
@@ -422,23 +728,6 @@ scalar_loop_kernel(int n, const int32_t* __restrict__ x, int32_t* __restrict__ o
 // that every thread takes alike (when), or not at all (none).
 constexpr int64_t kWhenSmem = int64_t(kWhenSrcRows * kLanes + 2 * kWhenRecords) * 4;
 constexpr int kWhenGroups = kWhenRecords / 8;  // groups of a pass over the records
-
-// Lane l's word of row `row` of out (out_l = out + l) gets v where a < b,
-// unsigned: a store that every lane issues and only those lanes perform, the
-// reference's masked store. No branch, so the compiler cannot sink the
-// stored value's load behind one (a load inside a divergent branch waits out
-// its whole latency before the store, record after record); the compare and
-// the row's address are the asm's own, one instruction each.
-__device__ __forceinline__ void store_below(uint32_t a, uint32_t b, int32_t* out_l, uint32_t row, int32_t v) {
-#ifdef __CUDA_ARCH__
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t.reg .b64 at;\n\tsetp.lt.u32 p, %0, %1;\n\t"
-      "mad.wide.u32 at, %3, 512, %2;\n\t@p st.global.b32 [at], %4;\n\t}"
-      :: "r"(a), "r"(b), "l"(out_l), "r"(row), "r"(v));
-#else
-  if (a < b) out_l[row * kLanes] = v;
-#endif
-}
 
 // One record's loads and masks, ahead of its stores.
 struct WhenRecord {
@@ -517,6 +806,52 @@ when_drain_kernel(int ngroups, const int32_t* __restrict__ q, const int32_t* __r
   if (cycles && l == 0) *cycles = clock64() - start;
 }
 
+// ------------------------------------------------------------------ one-block read
+// Not a port of a TPU kernel: the rate at which one SM takes words in from
+// L2, which bounds a one-block drain. One block of kDrain8Threads threads
+// streams `tiles` tiles of 16 KiB of x into shared memory through a ring as
+// the drains' (kReadStages tiles, cp.async, one barrier a tile) and XORs
+// every word, so that each is read; out[0] is the XOR of x. Bytes over the
+// clock64() span of two sizes give bytes a cycle.
+constexpr int kReadStages = 6;
+constexpr int kReadTile = 4 * kTile;  // words
+
+__global__ void __launch_bounds__(kDrain8Threads)
+l2_read_kernel(int tiles, const int32_t* __restrict__ x, int32_t* __restrict__ out, long long* __restrict__ cycles) {
+  int32_t* ring = shared_words();
+  uint32_t* part = reinterpret_cast<uint32_t*>(ring + kReadStages * kReadTile);  // a word a warp
+  const int tid = threadIdx.x;
+  const uint32_t ring_at = shared_addr(ring);
+  const long long start = clock64();
+  auto issue = [&](int h) {
+    if (h < tiles)
+      copy_words<kReadTile, kDrain8Threads>(ring_at + h % kReadStages * kReadTile * 4, x + int64_t(h) * kReadTile,
+                                            tid);
+    copy_commit();
+  };
+  for (int h = 0; h < kReadStages - 1; ++h) issue(h);
+  uint32_t acc = 0;
+  for (int g = 0; g < tiles; ++g) {
+    copy_wait<kReadStages - 2>();
+    __syncthreads();
+    issue(g + kReadStages - 1);
+    const int4* tile = reinterpret_cast<const int4*>(ring + g % kReadStages * kReadTile);
+#pragma unroll
+    for (int m = 0; m < kReadTile / 4 / kDrain8Threads; ++m) {
+      const int4 v = tile[m * kDrain8Threads + tid];
+      acc ^= uint32_t(v.x) ^ uint32_t(v.y) ^ uint32_t(v.z) ^ uint32_t(v.w);
+    }
+  }
+  acc = __reduce_xor_sync(kFull, acc);
+  if (tid % kWarp == 0) part[tid / kWarp] = acc;
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < kDrain8Threads / kWarp; ++w) acc ^= part[w];
+    out[0] = static_cast<int32_t>(acc);
+    if (cycles) *cycles = clock64() - start;
+  }
+}
+
 // ------------------------------------------------------------------ dispatch
 // The instantiation a mode names (null for none), and each probe's launch
 // shape: blocks, threads a block and dynamic shared memory.
@@ -552,7 +887,7 @@ Shape chain_shape(int mode, int g) {
   return {kColumnBlocks, kWarp, mode == kGather ? int64_t(kLanes) * kWarp * 4 : 0};
 }
 
-Shape walk8_shape(int groups) { return {groups, kWarp, int64_t(2) * kTile * 4}; }
+Shape walk8_shape(int groups) { return {groups, kWarp, int64_t(kWalkRows + 1) * kTile * 4}; }
 
 Shape walk_scalar_shape(int blocks) { return {blocks, kWalkThreads, kWalkSmem}; }
 
@@ -567,7 +902,7 @@ DrainKernel drain_for(int mode) {
 
 Shape drain_shape(int mode) {
   const bool serial = mode == kDrainSerial;
-  return {1, serial ? kLanes : kDrain8Threads, serial ? 0 : kDrain8Smem};
+  return {1, serial ? kLanes : kDrain8Threads, serial ? kSerialSmem : kDrain8Smem};
 }
 
 ScalarKernel scalar_loop_for(int work, int unroll, int cond, int chain) {
@@ -597,6 +932,8 @@ WhenKernel when_for(int mode) {
 }
 
 Shape when_shape() { return {1, kLanes, kWhenSmem}; }
+
+Shape l2_read_shape() { return {1, kDrain8Threads, (int64_t(kReadStages) * kReadTile + kWarp) * 4}; }
 
 }  // namespace
 
@@ -662,6 +999,12 @@ int snappy_probe_when_drain(int mode, int ngroups, const void* q, const void* r,
   return launch(when_for(mode), when_shape(), stream, ngroups, static_cast<const int32_t*>(q),
                 static_cast<const int32_t*>(r), static_cast<const int32_t*>(src), static_cast<int32_t*>(out),
                 static_cast<long long*>(cycles));
+}
+
+// The one-block read of `tiles` tiles of 4096 words of x (not a probe).
+int snappy_probe_l2_read(int tiles, const void* x, void* out, void* cycles, void* stream) {
+  return launch(l2_read_kernel, l2_read_shape(), stream, tiles, static_cast<const int32_t*>(x),
+                static_cast<int32_t*>(out), static_cast<long long*>(cycles));
 }
 
 }  // extern "C"

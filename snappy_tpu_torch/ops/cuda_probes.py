@@ -4,7 +4,9 @@ The counterparts of the Pallas kernels of ``benchmarks/exp_vector_walk.py``,
 one wrapper a kernel, with the contracts of the plain versions in
 ``ops/probes_torch.py`` (same arguments, same results): ``chain`` (P1),
 ``walk8`` (P2), ``walk_scalar`` (P3), ``drain`` (P4), ``scalar_loop`` (P5)
-and ``when_drain`` (P6). The knob is a Python int.
+and ``when_drain`` (P6). The knob is a Python int. Beside them ``l2_read``,
+which ports no TPU kernel and is not counted in ``launches``: one block's
+read of a buffer from L2, whose cycles bound a one-block drain.
 
 A CUDA tensor launches the kernel on the current stream and returns without
 synchronising, or raises. Given ``cycles``, an int64[1] tensor on the same
@@ -72,13 +74,21 @@ def _on_card(t: torch.Tensor, cycles: torch.Tensor | None, lib) -> bool:
     return True
 
 
-def _launch(kernel: str, entry: str, device, cycles, *args, lib=None) -> None:
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on 16 bytes: the
+    kernels copy rows into shared memory 16 bytes a piece (cp.async)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(kernel: str | None, entry: str, device, cycles, *args, lib=None) -> None:
+    """Launch ``entry`` and count it under ``kernel`` in ``launches`` (not
+    for another build, ``lib``, nor for ``kernel`` None)."""
     with torch.cuda.device(device):
         rc = getattr(lib if lib is not None else kernels.load("exp_vector_walk"), entry)(
             *args, cycles.data_ptr() if cycles is not None else None, torch.cuda.current_stream(device).cuda_stream
         )
     kernels.check(rc, f"{entry} launch")
-    if lib is None:
+    if lib is None and kernel is not None:
         launches[kernel] += 1
 
 
@@ -113,6 +123,7 @@ def walk8(knob: int, clen: torch.Tensor, cmds: torch.Tensor, cycles: torch.Tenso
     rec = torch.empty((g, probes_torch.T_TILES, 8, LANES), dtype=torch.int32, device=cmds.device)
     meta = torch.empty((g, 1, 2), dtype=torch.int32, device=cmds.device)
     if g:
+        cmds = _aligned16(cmds)
         _launch("walk8", "snappy_probe_walk8", cmds.device, cycles, g, knob, clen.data_ptr(), cmds.data_ptr(),
                 rec.data_ptr(), meta.data_ptr(), lib=lib)
     return rec, meta
@@ -152,6 +163,7 @@ def drain(knob: int, q0: torch.Tensor, r: torch.Tensor, fld: torch.Tensor, src: 
     if not _on_card(src, cycles, lib):
         return probes_torch.drain(knob, q0, r, fld, src, mode)
     out = torch.empty((nsrc + 8, LANES), dtype=torch.int32, device=src.device)
+    fld, src = _aligned16(fld), _aligned16(src)
     _launch("drain", "snappy_probe_drain", src.device, cycles, m, knob, nsrc, q0.data_ptr(), r.data_ptr(),
             fld.data_ptr(), src.data_ptr(), out.data_ptr(), lib=lib)
     return out
@@ -187,4 +199,24 @@ def when_drain(knob: int, q: torch.Tensor, r: torch.Tensor, src: torch.Tensor, m
     out = torch.empty((WHEN_OUT_ROWS, LANES), dtype=torch.int32, device=src.device)
     _launch("when_drain", "snappy_probe_when_drain", src.device, cycles, m, knob // 8, q.data_ptr(), r.data_ptr(),
             src.data_ptr(), out.data_ptr(), lib=lib)
+    return out
+
+
+READ_TILE = 4096  # words of the one-block read's tiles
+
+
+def l2_read(x: torch.Tensor, cycles: torch.Tensor | None = None, lib=None) -> torch.Tensor:
+    """The XOR of x int32[N], N a multiple of READ_TILE, read by one block
+    through a ring of cp.async copies as the drains'; see
+    ``probes_torch.xor_words``. Not a probe: its cycles give the rate at which
+    one SM takes words in from L2 (``tools/exp_vector_walk.py``)."""
+    n = x.shape[0] if isinstance(x, torch.Tensor) and x.dim() == 1 else -1
+    if n < 0 or n % READ_TILE:
+        raise TypeError(f"x must be int32[N] with N a multiple of {READ_TILE}")
+    _check("x", x, (n,))
+    if not _on_card(x, cycles, lib):
+        return probes_torch.xor_words(x)
+    out = torch.empty(1, dtype=torch.int32, device=x.device)
+    x = _aligned16(x)
+    _launch(None, "snappy_probe_l2_read", x.device, cycles, n // READ_TILE, x.data_ptr(), out.data_ptr(), lib=lib)
     return out

@@ -50,6 +50,7 @@ ENTRIES = {
         "snappy_probe_drain": (_INT, [_INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]),
         "snappy_probe_scalar_loop": (_INT, [_INT, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR]),
         "snappy_probe_when_drain": (_INT, [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]),
+        "snappy_probe_l2_read": (_INT, [_INT, _PTR, _PTR, _PTR, _PTR]),
     },
 }
 

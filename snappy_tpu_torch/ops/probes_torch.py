@@ -356,6 +356,18 @@ def when_drain(knob: int, q: torch.Tensor, r: torch.Tensor, src: torch.Tensor, m
     )
 
 
+def xor_words(x: torch.Tensor) -> torch.Tensor:
+    """The XOR of the words of x int32[N] -> int32[1]: what the one-block
+    read of ``cuda_probes.l2_read`` computes (not a probe; it measures the
+    rate at which one SM takes words in from L2)."""
+    v = x.reshape(-1)
+    while v.numel() > 1:
+        if v.numel() % 2:
+            v = torch.cat([v, v.new_zeros(1)])
+        v = v[: v.numel() // 2] ^ v[v.numel() // 2:]
+    return v.reshape(1).clone() if v.numel() else x.new_zeros(1)
+
+
 # ------------------------------------------------------------------ P5
 
 

@@ -35,6 +35,10 @@ are those of block 0's own walks. Prints one line a probe, the card's name
 and power limit, and last a JSON line ``{"probes": [...]}``. Requires a CUDA
 card and nvcc.
 
+With ``drains`` (or ``all``) it also reads 1 MiB and 4 MiB from L2 with one
+block (``l2_rate``), the rate that bounds a one-block drain, and the JSON
+line gains ``"l2_read"``.
+
 ``--parent PATH`` builds another copy of ``csrc/exp_vector_walk.cu``, such as
 a parent commit's (``git show <commit>:snappy_tpu_torch/csrc/
 exp_vector_walk.cu > PATH``), beside the current one, gates it against the
@@ -113,6 +117,31 @@ def drain_inputs(seed: int = 1):
     return q0, r, fld, src
 
 
+# Rows past either end of P4's output, and rows whose next ones wrap: the
+# kernels clamp r (and r + 1) into the output and q0 (and q0 + 1, q0 + 2)
+# into the source, each sum wrapping as the reference's int32 arithmetic
+# does. q0 stops short of INT_MAX - 1: from there the plain version, which
+# adds q0 + 1 and q0 + 2 in int64, clamps where the reference and the
+# kernel wrap (ROADMAP Queue 3).
+DRAIN_EDGE_ROWS = (-1, -7, NSRC - 1, NSRC, NSRC + 6, NSRC + 7, NSRC + 8, 600, -(1 << 31), (1 << 31) - 1,
+                   (1 << 31) - 2, (1 << 31) - 3)
+DRAIN_EDGE_Q0 = tuple(v for v in DRAIN_EDGE_ROWS if v < (1 << 31) - 2)
+
+
+def drain_gate_inputs(seed: int = 9) -> list[tuple]:
+    """P4's inputs beside the script's: (q0, r, fld, src) with fields drawn
+    per lane and every fourth record's row repeated by the next (a later
+    record to the same row must win); and the same with q0 at
+    ``DRAIN_EDGE_Q0`` and r at ``DRAIN_EDGE_ROWS``."""
+    q0, r, fld, src = drain_inputs()
+    fld = np.random.default_rng(seed).integers(0, 1 << 28, fld.shape).astype(np.int32)
+    r[1::4] = r[::4]
+    eq0, er = q0.copy(), r.copy()
+    eq0[::5] = np.resize(np.array(DRAIN_EDGE_Q0, np.int32), eq0[::5].shape)
+    er[2::7] = np.resize(np.array(DRAIN_EDGE_ROWS, np.int32), er[2::7].shape)
+    return [(q0, r, fld, src), (eq0, er, fld, src)]
+
+
 def when_inputs(seed: int = 3):
     """``run_when``'s records: (q, r, src); lo + n > 128 for ~15% of them."""
     rng = np.random.default_rng(seed)
@@ -187,15 +216,49 @@ def walks(dev) -> list[Probe]:
 
 def drains(dev) -> list[Probe]:
     args = tuple(torch.from_numpy(a).to(dev) for a in drain_inputs())
+    more = [tuple(torch.from_numpy(a).to(dev) for a in g) for g in drain_gate_inputs()]
     out = []
     for mode, label in (("gather", "drain8 gather"), ("logroll", "drain8 logroll"), ("serial", "drain serial")):
         eight = mode != "serial"
         out.append(Probe(
             f"P4 {label}", "drain", functools.partial(cuda_probes.drain, mode=mode),
             functools.partial(probes_torch.drain, mode=mode), args, NREC // 4, NREC, NREC,
-            (lambda k: (k // 8 * 8,) * 2) if eight else (lambda k: (k, k)), "record", 10 * LANES,
+            (lambda k: (k // 8 * 8,) * 2) if eight else (lambda k: (k, k)), "record", 10 * LANES, gate_args=more,
         ))
     return out
+
+
+READ_TILES = (64, 256)  # the one-block read's sizes: 1 MiB and 4 MiB of 16 KiB tiles
+
+
+def l2_rate(dev, lib=None) -> dict:
+    """The rate at which one SM takes words in from L2: the one-block read
+    (``cuda_probes.l2_read``, a ring of cp.async copies as the drains') of 1
+    MiB and 4 MiB, each held against its plain version first (exact), then
+    resident in L2 after a warm-up launch; bytes a cycle and GB/s by the
+    slope of the two sizes (median of ITERS launches each, the kernel's
+    clock64() span and CUDA events). ``lib``: another build of the source,
+    as ``--parent``."""
+    tile = cuda_probes.READ_TILE
+    read = functools.partial(cuda_probes.l2_read, lib=lib)
+    x = torch.from_numpy(np.random.default_rng(4).integers(-(1 << 31), 1 << 31, READ_TILES[-1] * tile)
+                         .astype(np.int32)).to(dev)
+    cyc, ms = {}, {}
+    for t in READ_TILES:
+        part = x[: t * tile]
+        if not torch.equal(read(part), probes_torch.xor_words(part)):
+            raise RuntimeError(f"the one-block read of {t} tiles and its plain version differ")
+        ms[t] = time_device_fn(read, (part,), iters=ITERS, warmup=1) * 1e3
+        runs = []
+        for _ in range(ITERS):
+            c = torch.zeros(1, dtype=torch.int64, device=dev)
+            read(part, cycles=c)
+            runs.append(int(c.item()))
+        cyc[t] = sorted(runs)[ITERS // 2]
+    lo, hi = READ_TILES
+    nbytes = (hi - lo) * tile * 4
+    return {"bytes_per_cycle": nbytes / (cyc[hi] - cyc[lo]), "gb_per_s": nbytes / ((ms[hi] - ms[lo]) * 1e6),
+            "cycles_lo": cyc[lo], "cycles_hi": cyc[hi], "ms_lo": ms[lo], "ms_hi": ms[hi], "tiles": list(READ_TILES)}
 
 
 def scalar(dev) -> list[Probe]:
@@ -265,6 +328,19 @@ def gate(p: Probe) -> dict:
     return {"max_abs_err": 0, "plain_ms": plain_ms, "plain_knob": p.gate, "kernel_ms": kernel_ms}
 
 
+def gate_parent(p: Probe) -> None:
+    """Gate a parent's copy as ``gate`` does; where it differs only on the
+    inputs beside the script's (``gate_args``, which an older copy was not
+    held to), say so and gate it on the script's inputs alone."""
+    try:
+        gate(p)
+    except RuntimeError as e:
+        if not p.gate_args:
+            raise
+        print(f"parent {e}; on the script's inputs alone:", flush=True)
+        gate(dataclasses.replace(p, gate_args=[]))
+
+
 def measure(p: Probe) -> dict:
     """Time ``p`` at its two knobs; ns and cycles a step by the slope."""
     dev = p.args[0].device
@@ -309,14 +385,16 @@ def card() -> str:
     return smi.stdout.strip().splitlines()[0].strip()
 
 
-def build_copy(path: Path) -> ctypes.CDLL:
+def build_copy(path: Path, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Another copy of the probes' source, built beside the current one
-    (nvcc, the same flags) and bound with the same entry points."""
-    compiler = [str(kernels.nvcc_path()), *kernels.NVCC_FLAGS]
+    (nvcc, the same flags and ``-D`` each of ``defines``) and bound with the
+    same entry points."""
+    compiler = [str(kernels.nvcc_path()), *kernels.NVCC_FLAGS, *(f"-D{d}" for d in defines)]
     lib = ctypes.CDLL(str(build_shared(compiler, [path], "snappy_cuda_exp_vector_walk_copy")))
     for name, (restype, argtypes) in kernels.ENTRIES["exp_vector_walk"].items():
-        fn = getattr(lib, name)
-        fn.restype, fn.argtypes = restype, argtypes
+        if hasattr(lib, name):  # an older copy may lack an entry point that no probe calls
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = restype, argtypes
     return lib
 
 
@@ -349,15 +427,20 @@ def main(argv: list[str] | None = None) -> int:
         for p in ps:
             gate(p)
             if parent is not None:
-                gate(on_copy(p, parent))
+                gate_parent(on_copy(p, parent))
         copies = " (and the parent's)" if parent is not None else ""
         print(f"{group}: {len(ps)} probes{copies} identical to their plain versions", flush=True)
         for p in ps:
             if parent is not None:
                 parents += run([on_copy(p, parent)], prefix="parent ")
             results += run([p])
-    print(name, flush=True)
     record = {"probes": results}
+    if args.group in ("drains", "all"):
+        record["l2_read"] = l2_rate(dev)
+        rate = record["l2_read"]
+        print(f"one-block L2 read: {rate['bytes_per_cycle']:.2f} bytes/cycle, {rate['gb_per_s']:.2f} GB/s "
+              f"({rate['ms_hi']:.4f} ms for {READ_TILES[-1] * 16} KiB)", flush=True)
+    print(name, flush=True)
     if parent is not None:
         record["parent"] = parents
     print(json.dumps(record), flush=True)

@@ -322,6 +322,110 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         cuda_probes.drain(8, q0[:12], r[:12], fld[:1], src, "serial")
 
 
+def _rows_both_define(q0, r, knob, nsrc, mode):
+    """The output rows that no record with a row outside its array reaches
+    under either reading of such a row: the port clamps it into the array;
+    the reference in interpret mode reads a negative source row from the
+    end, stores to a negative row r at row r + S + 9 (row 0 below -S - 9)
+    and drops a store past the output's end."""
+    nrec = knob if mode == "serial" else knob // 8 * 8
+    ks = (0, 1, 2) if mode == "serial" else (0,)
+    q = q0[:nrec].astype(np.int64)[:, None] + np.array(ks)
+    rr = r[:nrec].astype(np.int64)[:, None] + np.array((0, 1) if mode == "serial" else (0,))
+    q, rr = ((v + (1 << 31)) % (1 << 32) - (1 << 31) for v in (q, rr))  # int32 sums wrap
+    out_rows = nsrc + 8
+    bad = ((q < 0) | (q >= nsrc)).any(1) | ((rr < 0) | (rr >= out_rows)).any(1)
+    reached = np.clip(np.concatenate([rr[bad], rr[bad] + out_rows + 1]), 0, out_rows - 1).ravel()
+    keep = np.ones(out_rows, bool)
+    keep[reached] = False
+    return keep
+
+
+@pytest.mark.parametrize("mode", pt.DRAIN_MODES)
+def test_drain_gate_inputs(ref, mode):
+    """P4's card gate beside the script's inputs, against the script's
+    kernel: fields drawn per lane with every fourth record's row repeated by
+    the next, drained alike; and the same with q0 and r at the edge rows,
+    where the two agree on every output row that no record with a row
+    outside its array reaches (such rows are the port's convention, which
+    the plain version and the kernels share: clamped into the array)."""
+    (q0, r, fld, src), (eq0, er, efld, _) = tool.drain_gate_inputs()
+    assert (fld != fld[:, :, :1]).any() and (r[1::4] == r[::4]).all()
+    assert set(tool.DRAIN_EDGE_Q0) <= set(eq0.tolist()) and set(tool.DRAIN_EDGE_ROWS) <= set(er.tolist())
+    assert max(eq0) < (1 << 31) - 2 and efld is fld
+    want = _drain_kernel(ref, mode)(_knob(256), *(jnp.asarray(a) for a in (q0, r, fld, src)))
+    _eq(pt.drain(256, _t(q0), _t(r), _t(fld), _t(src), mode), want)
+    want = np.asarray(_drain_kernel(ref, mode)(_knob(256), *(jnp.asarray(a) for a in (eq0, er, fld, src))))
+    keep = _rows_both_define(eq0, er, 256, src.shape[0], mode)
+    assert keep.sum() > 0.8 * keep.size
+    got = pt.drain(256, _t(eq0), _t(er), _t(fld), _t(src), mode).numpy()
+    np.testing.assert_array_equal(got[keep], want[keep])
+    assert all(len(p.gate_args) == 2 for p in tool.drains(torch.device("cpu")))
+
+
+def test_drain_serial_wraps_q0_near_int_max(ref):
+    """The serial drain reads rows q0, q0 + 1 and q0 + 2; the script adds
+    them in int32, so at q0 = INT_MAX - 1 and INT_MAX they wrap to INT_MIN
+    and clamp to row 0, as the kernel does (its g++ emulation holds it to
+    the same rows). The plain version adds in int64 and clamps to the last
+    row (ROADMAP Queue 3): the script is held to the plain version given
+    the rows the wrap picks, and the raw plain version pinned as differing."""
+    q0, r, fld, src = tool.drain_gate_inputs()[0]
+    q0[::3] = np.resize(np.array([(1 << 31) - 3, (1 << 31) - 2, (1 << 31) - 1], np.int32), q0[::3].shape)
+    knob, rows = 64, src.shape[0] + 8
+    want = np.asarray(_drain_kernel(ref, "serial")(_knob(knob), *(jnp.asarray(a) for a in (q0, r, fld, src))))
+    q = (q0[:knob].astype(np.int64)[:, None] + np.arange(3) + (1 << 31)) % (1 << 32) - (1 << 31)
+    wsrc = np.concatenate([src[np.clip(q, 0, src.shape[0] - 1).reshape(-1)], np.zeros_like(src)])
+    wq0 = np.arange(q0.size, dtype=np.int32) * 3
+    got = pt.drain(knob, _t(wq0), _t(r), _t(fld), _t(wsrc), "serial").numpy()
+    assert (got[rows:] == pt.INT_MIN).all()
+    np.testing.assert_array_equal(got[:rows], want)
+    assert not np.array_equal(pt.drain(knob, *(_t(a) for a in (q0, r, fld, src)), "serial").numpy(), want)
+
+
+def test_l2_read_on_the_cpu_is_the_xor():
+    """The one-block read's plain version, which its wrapper takes for a CPU
+    tensor without counting a launch; sizes not a whole number of tiles are
+    refused."""
+    x = torch.from_numpy(np.random.default_rng(3).integers(-(1 << 31), 1 << 31, 2 * cuda_probes.READ_TILE)
+                         .astype(np.int32))
+    want = int(np.bitwise_xor.reduce(x.numpy()))
+    before = dict(cuda_probes.launches)
+    assert cuda_probes.l2_read(x).tolist() == [want] == pt.xor_words(x).tolist()
+    assert cuda_probes.launches == before
+    assert pt.xor_words(x[:3]).tolist() == [int(np.bitwise_xor.reduce(x[:3].numpy()))]
+    with pytest.raises(TypeError):
+        cuda_probes.l2_read(x[:1000])
+
+
+def test_wrappers_copy_a_misaligned_tensor_before_a_launch():
+    """The kernels copy rows 16 bytes a piece: a tensor whose data does not
+    start on 16 bytes is copied (an aligned one is passed as it is)."""
+    x = torch.arange(9, dtype=torch.int32)
+    assert cuda_probes._aligned16(x) is x
+    y = x[1:]
+    assert y.data_ptr() % 16
+    z = cuda_probes._aligned16(y)
+    assert z.data_ptr() % 16 == 0 and torch.equal(z, y)
+
+
+def test_gate_parent_falls_back_to_the_scripts_inputs(cpu_probes, capsys):
+    """A parent's copy that differs from the plain version only on the
+    inputs beside the script's is gated on the script's inputs alone, and
+    says so; one that differs on the script's inputs still fails."""
+    p = dataclasses.replace(cpu_probes["P4 drain8 gather"], gate=64)
+    args = p.args
+
+    def older(knob, *a):  # right on the script's inputs only
+        out = p.plain(knob, *a)
+        return out if all(x is y for x, y in zip(a, args)) else out + 1
+
+    tool.gate_parent(dataclasses.replace(p, fn=older))
+    assert "on the script's inputs alone" in capsys.readouterr().out
+    with pytest.raises(RuntimeError, match="differ"):
+        tool.gate_parent(dataclasses.replace(p, fn=lambda knob, *a: p.plain(knob, *a) + 1))
+
+
 def test_walk8_wrapper_refuses_a_length_that_varies_over_lanes():
     """P2 takes one length a walk: a group whose lengths vary over a walk's
     lanes gets meta (-1, -1) and INT_MIN records on the CPU as on the card

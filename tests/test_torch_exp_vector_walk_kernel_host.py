@@ -9,7 +9,12 @@ with one ``std::thread`` per thread of a block, a ``std::barrier`` for
 (``__shfl_sync``, ``__reduce_add_sync``, ``__reduce_max_sync``,
 ``__any_sync``, ``__all_sync``) through a per-warp exchange array, Hopper's
 DPX clamps as plain min and max, and a static buffer for shared memory. The
-blocks of a grid run one after another. The kernels are picked, and their
+asynchronous copies (cp.async) are queued by thread in the groups it commits
+and land when that thread waits for them, the latest a card lands them, so
+a stage read before the wait that covers it reads stale words; one case runs
+each ring kernel with every copy landing as it is issued, the earliest. The
+predicated stores are their source's host branches. The blocks of a grid
+run one after another. The kernels are picked, and their
 grids, block shapes and shared memory taken, by the source's own dispatch
 functions.
 
@@ -26,13 +31,14 @@ import torch
 
 from snappy_tpu_torch.ops import probes_torch as pt
 from snappy_tpu_torch.ops.kernels import CSRC
-from snappy_tpu_torch.tools.exp_vector_walk import WHEN_EDGE_ROWS, drain_inputs, when_inputs
+from snappy_tpu_torch.tools.exp_vector_walk import WHEN_EDGE_ROWS, drain_gate_inputs, drain_inputs, when_inputs
 
 GUARD = 64  # canary words on each side of an output
 CANARY = 0x5A5A5A5A
 
 _PRELUDE = r"""
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cstdint>
 #include <memory>
@@ -92,6 +98,14 @@ static inline int __all_sync(unsigned, int p) {
   for (uint32_t a : all) if (!a) return 0;
   return 1;
 }
+static inline unsigned __reduce_xor_sync(unsigned, unsigned v) {
+  uint32_t all[32];
+  emu_post(v, all);
+  unsigned x = 0;
+  for (uint32_t a : all) x ^= a;
+  return x;
+}
+struct alignas(8) int2 { int32_t x, y; };
 struct alignas(16) int4 { int32_t x, y, z, w; };
 // Hopper's DPX: max(min(a, b), 0) and max(min(a + b, c), 0), a + b wrapping.
 static inline int __vimin_s32_relu(int a, int b) { return std::max(std::min(a, b), 0); }
@@ -100,16 +114,43 @@ static inline int __viaddmin_s32_relu(int a, int b, int c) {
 }
 constexpr int64_t kEmuSmemWords = (1 << 18) / 4;
 alignas(16) static int32_t g_smem[kEmuSmemWords];
+// cp.async: each thread's copies, in the groups it commits. With g_copy_late
+// a group lands when its thread waits for it (the latest a card lands it),
+// so a read of a stage before the wait that covers it sees stale words;
+// else a copy lands as it is issued (the earliest), so a stage written while
+// another thread still reads it changes under that thread.
+struct EmuCopy { int32_t* dst; const int32_t* src; int n; };
+static bool g_copy_late = true;
+static std::atomic<bool> g_misaligned{false};  // a 16-byte copy from or to an address off 16 bytes
+thread_local std::vector<std::vector<EmuCopy>> t_groups;
+thread_local std::vector<EmuCopy> t_open;
+static inline void emu_land(const EmuCopy& c) { for (int i = 0; i < c.n; ++i) c.dst[i] = c.src[i]; }
+static inline void emu_copy(int32_t* dst, const int32_t* src, int n) {
+  if (n == 4 && ((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15)) g_misaligned = true;
+  if (g_copy_late) t_open.push_back({dst, src, n}); else emu_land({dst, src, n});
+}
+static inline void emu_commit() { t_groups.push_back(std::move(t_open)); t_open.clear(); }
+static inline void emu_wait(size_t n) {
+  while (t_groups.size() > n) {
+    for (const EmuCopy& c : t_groups.front()) emu_land(c);
+    t_groups.erase(t_groups.begin());
+  }
+}
+#define SNAPPY_HOST_COPY(dst, src, n) emu_copy(dst, src, n)
+#define SNAPPY_HOST_COMMIT() emu_commit()
+#define SNAPPY_HOST_WAIT(n) emu_wait(n)
 """
 
 _HARNESS = r"""
 // Run `body` as the blocks of `shape`, one block at a time, each as
-// `shape.threads` std::threads; 2 when the emulation cannot hold the shape.
+// `shape.threads` std::threads; 2 when the emulation cannot hold the shape,
+// 3 when a 16-byte copy was not 16-byte aligned (cp.async faults there).
 template <class F>
 static int emu_grid(Shape shape, F body) {
   if (shape.threads % 32 || shape.threads / 32 > kEmuMaxWarps || shape.smem > kEmuSmemWords * 4) return 2;
   std::barrier<> bar(shape.threads);
   g_block_bar = &bar;
+  g_misaligned = false;
   std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
   for (int w = 0; w < shape.threads / 32; ++w) {
     warp_bars.emplace_back(new std::barrier<>(32));
@@ -122,12 +163,16 @@ static int emu_grid(Shape shape, F body) {
       for (int b = 0; b < shape.blocks; ++b) {
         blockIdx.x = b;
         body();
+        emu_commit();  // copies still in flight at the end land, as on the card
+        emu_wait(0);
         bar.arrive_and_wait();
       }
     });
   for (auto& t : ts) t.join();
-  return 0;
+  return g_misaligned ? 3 : 0;
 }
+
+extern "C" void emu_copy_late(int late) { g_copy_late = late != 0; }
 
 extern "C" int emu_chain(int mode, int g, int reps, const int32_t* x, int32_t* out) {
   ChainKernel k = chain_for(mode, g);
@@ -164,6 +209,10 @@ extern "C" int emu_when_drain(int mode, int ngroups, const int32_t* q, const int
   WhenKernel k = when_for(mode);
   if (!k) return 1;
   return emu_grid(when_shape(), [&] { k(ngroups, q, r, src, out, nullptr); });
+}
+
+extern "C" int emu_l2_read(int tiles, const int32_t* x, int32_t* out) {
+  return emu_grid(l2_read_shape(), [&] { l2_read_kernel(tiles, x, out, nullptr); });
 }
 """
 
@@ -219,6 +268,8 @@ def emu(tmp_path_factory):
     lib.emu_drain.argtypes = [i, i, i, p, p, p, p, p]
     lib.emu_scalar_loop.argtypes = [i, i, i, i, i, p, p]
     lib.emu_when_drain.argtypes = [i, i, p, p, p, p]
+    lib.emu_l2_read.argtypes = [i, p, p]
+    lib.emu_copy_late.argtypes = [i]
     return lib
 
 
@@ -300,6 +351,65 @@ def test_walk8_refuses_a_length_that_varies_over_lanes(emu):
     np.testing.assert_array_equal(rec[1:], p_rec.numpy())
 
 
+def _in_step(nrow_words: np.ndarray, groups: int = 1) -> np.ndarray:
+    """One block's command words, walked by all 8 walks of each group."""
+    return np.broadcast_to(nrow_words.reshape(1, pt.R_ROWS, 1, pt.LANES), (groups, pt.R_ROWS, 8, pt.LANES)).copy()
+
+
+def _hold_walk8(emu, clen, cmds_g, nrow):
+    rec, meta = _walk8(emu, clen, cmds_g, nrow)
+    p_rec, p_meta = pt.walk8(nrow, _t(clen), _t(cmds_g))
+    np.testing.assert_array_equal(meta, p_meta.numpy())
+    np.testing.assert_array_equal(rec, p_rec.numpy())
+    return rec
+
+
+@pytest.mark.parametrize("nrow", [0, 1, 7, 45])
+def test_walk8_walks_in_step(emu, nrow):
+    """All 8 walks of a group read the same words, so their cursors move in
+    step and each step's 8 appends go to one position of 8 walks: in a
+    walk-major tile of 128-word rows they would share a bank."""
+    cmds_g = _in_step(pt.synth_cmds(1, seed=3, max_advance=7)[0], groups=2)
+    clen = np.full((2, 8, pt.LANES), pt.NCP, np.int32)
+    _hold_walk8(emu, clen, cmds_g, nrow)
+
+
+def test_walk8_walks_end_mid_burst(emu):
+    """Lengths that end each walk at another step of a burst and of a row,
+    one of them before the first tag."""
+    cmds_g = _groups(pt.synth_cmds(16, seed=5, max_advance=7)[0])
+    ends = [[0, 1, 2, 129, 130, 5003, 17001, pt.NCP - 1], [3, 5, 6, 7, 11, 250, 251, 9999]]
+    clen = np.broadcast_to(np.array(ends, np.int32)[:, :, None], (2, 8, pt.LANES)).copy()
+    _hold_walk8(emu, clen, cmds_g, 100)
+
+
+def test_walk8_stalls_at_the_burst_cap(emu):
+    """A tag that advances 0 keeps its walk in the row for all kMaxBursts
+    bursts of 4 steps; the cursor passes 128 (appends stop there) and the
+    tile is flushed after every such row. Other walks of the group move on."""
+    cmds = pt.synth_cmds(8, seed=6, max_advance=7)[0].reshape(8, pt.R_ROWS, pt.LANES)
+    cmds[2, 3, :] = 0  # walk 2 stalls in row 3 wherever it lands: a copy of advance 0
+    cmds[5, 5, :] = 8  # walk 5 in row 5: a literal of length 0, advance 0
+    cmds_g = cmds.reshape(1, 8, pt.R_ROWS, pt.LANES).transpose(0, 2, 1, 3).copy()
+    clen = np.full((1, 8, pt.LANES), pt.NCP, np.int32)
+    rec = _hold_walk8(emu, clen, cmds_g, 12)
+    for w in (2, 5):  # a tile that ends in appends of the one ip where the walk stalled, up to position 127
+        tail = rec[0, :, w, -16:]
+        assert ((tail == tail[:, -1:]).all(1) & (tail[:, -1] != 0) & (tail[:, -1] != pt.INT_MIN)).any()
+
+
+@pytest.mark.parametrize("nrow", [97, pt.R_ROWS])
+def test_walk8_tile_clamps_at_95(emu, nrow):
+    """Walks of advance 1 take all 128 steps of every row (the burst cap is
+    what ends each row), so each row flushes a full tile: past 96 rows the
+    flushes land on tile 95, the last one wins, and the end stores there too."""
+    words = np.full((pt.R_ROWS, pt.LANES), 1, np.int32)
+    cmds_g = _in_step(words)
+    cmds_g[0, :, 6] = pt.synth_cmds(1, seed=8, max_advance=7)[0].reshape(pt.R_ROWS, pt.LANES)  # one walk apart
+    clen = np.full((1, 8, pt.LANES), pt.NCP, np.int32)
+    _hold_walk8(emu, clen, cmds_g, nrow)
+
+
 @pytest.mark.parametrize("knob, max_advance", [(0, 8), (1, 8), (2, 7)])
 def test_walk_scalar(emu, knob, max_advance):
     cmds, _ = pt.synth_cmds(3, max_advance=max_advance)
@@ -340,6 +450,144 @@ def test_unknown_variants_are_refused(emu):
     assert emu.emu_scalar_loop(5, 1, 0, 0, 10, _ptr(x), out.ptr) == 1
     assert emu.emu_chain(0, 2, 1, _ptr(np.zeros((2, 8, pt.LANES), np.int32)), out.ptr) == 1
     assert emu.emu_drain(3, 8, pt.NSRC, *(_ptr(x),) * 4, out.ptr) == 1
+
+
+RING = 96  # records the drains' ring holds: kDrainStages batches of two groups of 8
+
+
+def _drain(emu, knob, q0, r, fld, src, mode):
+    nsrc = src.shape[0]
+    out = _Out((nsrc + 8, pt.LANES))
+    assert emu.emu_drain(pt.DRAIN_MODES.index(mode), knob, nsrc, *map(_ptr, (q0, r, fld, src)), out.ptr) == 0
+    want = pt.drain(knob, *(_t(a) for a in (q0, r, fld, src)), mode).numpy()
+    np.testing.assert_array_equal(out.get(), want)
+
+
+def _knobs(mode):
+    """0, one group, and runs that wrap the ring but end off a multiple of
+    its records, on an odd group (half a batch; serial: also off a group)."""
+    odd = 3 if mode == "serial" else 0
+    return (0, 8, RING + 56 + odd, 3 * RING + 72 + odd)
+
+
+@pytest.mark.parametrize("mode", pt.DRAIN_MODES)
+def test_drain_later_record_wins(emu, mode):
+    """Every record stores to output row 5 (serial: and row 6), so each
+    lane's last record in order must win, across groups and ring stages."""
+    q0, r, fld, src = drain_gate_inputs()[0]
+    r[:] = 5
+    for knob in _knobs(mode):
+        _drain(emu, knob, q0, r, fld, src, mode)
+
+
+@pytest.mark.parametrize("mode", pt.DRAIN_MODES)
+def test_drain_clamps_rows(emu, mode):
+    """q0 and r past either end (INT_MIN and INT_MAX among them; r + 1
+    wraps at INT_MAX), as the tool's card gate holds them."""
+    q0, r, fld, src = drain_gate_inputs()[1]
+    for knob in _knobs(mode):
+        _drain(emu, knob, q0, r, fld, src, mode)
+
+
+@pytest.mark.parametrize("nsrc", [1, 3, 2000])
+@pytest.mark.parametrize("mode", pt.DRAIN_MODES)
+def test_drain_source_sizes(emu, mode, nsrc):
+    """One source row, three (q0 + 2 past the end), and 2000 (1 MiB, far
+    more than shared memory holds), with rows drawn past the ends too."""
+    rng = np.random.default_rng(nsrc)
+    _, _, fld, _ = drain_gate_inputs()[0]
+    n = 2 * RING
+    q0 = rng.integers(-3, nsrc + 4, pt.NREC).astype(np.int32)
+    r = rng.integers(-3, nsrc + 12, pt.NREC).astype(np.int32)
+    src = rng.integers(-(1 << 31), 1 << 31, (nsrc, pt.LANES)).astype(np.int32)
+    _drain(emu, n + (5 if mode == "serial" else 0), q0, r, fld, src, mode)
+
+
+def _serial_wrapped(knob, q0, src):
+    """The serial drain's three rows a record, q0 + 1 and q0 + 2 summed in
+    int32 (wrapping, as the reference's arithmetic does) and clamped into
+    src, as a source of three rows a record (and as many rows again as src,
+    so that no output row clamps otherwise) and the q0 that names them: the
+    plain version drains those to the same output rows."""
+    q = (q0[:knob].astype(np.int64)[:, None] + np.arange(3) + (1 << 31)) % (1 << 32) - (1 << 31)
+    rows = src[np.clip(q, 0, src.shape[0] - 1).reshape(-1)]
+    return np.arange(q0.size, dtype=np.int32) * 3, np.concatenate([rows, np.zeros_like(src)])
+
+
+def test_drain_serial_wraps_q0_near_int_max(emu):
+    """q0 at INT_MAX - 2, INT_MAX - 1 and INT_MAX: q0 + 1 and q0 + 2 wrap to
+    INT_MIN and clamp to row 0, as in the reference (which
+    tests/test_torch_exp_vector_walk.py holds to the same rows). The plain
+    version adds them in int64 and clamps to the last row, so it is held
+    here on the rows the wrap picks, and pinned as differing on the raw ones."""
+    q0, r, fld, src = drain_gate_inputs()[0]
+    q0[::3] = np.resize(np.array([(1 << 31) - 3, (1 << 31) - 2, (1 << 31) - 1], np.int32), q0[::3].shape)
+    knob, rows = RING + 59, src.shape[0] + 8
+    out = _Out((rows, pt.LANES))
+    assert emu.emu_drain(pt.DRAIN_MODES.index("serial"), knob, src.shape[0], *map(_ptr, (q0, r, fld, src)),
+                         out.ptr) == 0
+    wq0, wsrc = _serial_wrapped(knob, q0, src)
+    want = pt.drain(knob, _t(wq0), _t(r), _t(fld), _t(wsrc), "serial").numpy()
+    assert (want[rows:] == pt.INT_MIN).all()
+    np.testing.assert_array_equal(out.get(), want[:rows])
+    assert not np.array_equal(out.get(), pt.drain(knob, *(_t(a) for a in (q0, r, fld, src)), "serial").numpy())
+
+
+def _misaligned(a):
+    buf = np.empty(a.size + 1, a.dtype)
+    out = buf[1:].reshape(a.shape)
+    out[...] = a
+    assert out.ctypes.data % 16
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["gather", "serial", "walk8", "l2_read"])
+def test_row_copies_need_16_byte_alignment(emu, kernel):
+    """The kernels copy rows into shared memory 16 bytes a piece, which
+    cp.async takes only between 16-byte aligned addresses: the emulation
+    reports any other (rc 3), so every case here ran aligned; the wrappers
+    of ops/cuda_probes.py copy a misaligned tensor before a launch."""
+    if kernel == "walk8":
+        cmds_g = _misaligned(_groups(pt.synth_cmds(8, seed=9, max_advance=7)[0]))
+        rec, meta = _Out((1, pt.T_TILES, 8, pt.LANES)), _Out((1, 1, 2))
+        clen = np.full((1, 8, pt.LANES), 20_000, np.int32)
+        assert emu.emu_walk8(1, 60, _ptr(clen), _ptr(cmds_g), rec.ptr, meta.ptr) == 3
+    elif kernel == "l2_read":
+        x, out = _misaligned(np.arange(2 * 4096, dtype=np.int32)), _Out((1,))
+        assert emu.emu_l2_read(2, _ptr(x), out.ptr) == 3
+    else:
+        q0, r, fld, src = drain_gate_inputs()[0]
+        src, out = _misaligned(src), _Out((src.shape[0] + 8, pt.LANES))
+        assert emu.emu_drain(pt.DRAIN_MODES.index(kernel), 64, src.shape[0], *map(_ptr, (q0, r, fld, src)),
+                             out.ptr) == 3
+
+
+@pytest.mark.parametrize("tiles", [1, 7, 8, 21])
+def test_l2_read(emu, tiles):
+    """The one-block read XORs every word of its tiles, through the ring."""
+    x = np.random.default_rng(tiles).integers(-(1 << 31), 1 << 31, tiles * 4096).astype(np.int32)
+    out = _Out((1,))
+    assert emu.emu_l2_read(tiles, _ptr(x), out.ptr) == 0
+    np.testing.assert_array_equal(out.get(), pt.xor_words(_t(x)).numpy())
+
+
+@pytest.mark.parametrize("kernel", ["gather", "logroll", "serial", "walk8", "l2_read"])
+def test_ring_kernels_with_copies_landing_at_issue(emu, kernel):
+    """The other end of a copy's timing: every copy lands as it is issued,
+    so a stage refilled while a thread still reads it changes under it."""
+    emu.emu_copy_late(0)
+    try:
+        if kernel == "walk8":
+            cmds_g = _groups(pt.synth_cmds(8, seed=2, max_advance=7)[0])
+            _hold_walk8(emu, np.full((1, 8, pt.LANES), pt.NCP, np.int32), cmds_g, 30)
+        elif kernel == "l2_read":
+            test_l2_read(emu, 21)
+        else:
+            q0, r, fld, src = drain_gate_inputs()[1]
+            r[::3] = 5
+            _drain(emu, 2 * RING + 8, q0, r, fld, src, kernel)
+    finally:
+        emu.emu_copy_late(1)
 
 
 def _when(emu, knob, q, r, src, mode):
