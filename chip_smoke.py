@@ -71,7 +71,10 @@ non-zero:
  12. probes   the round-4 probe kernels P1-P6 (csrc/exp_vector_walk.cu), every
               variant against its plain version, bit for bit, at its high
               knob (P2 and P3 also on the stalled data of the reference's
-              generator), or at a small knob for P1 and P5, whose plain
+              generator, P4 also on q0 and r past the arrays' ends, q0 at
+              INT_MAX - 1 and INT_MAX among them, where the serial drain's
+              q0 + 1 and q0 + 2 wrap in int32 as the reference's do), or at
+              a small knob for P1 and P5, whose plain
               versions step through every iteration; then, with the launch
               counts reset just before and read just after,
               tools/exp_vector_walk.run times each at the script's two
@@ -88,12 +91,19 @@ non-zero:
               per frame with a block left on the card, the decoder once per
               frame. Gates: the round trip is bit-exact, the frame count, the
               first, a middle and the last (short) frame equal to
-              compress_framed of their chunk, no retry. Then
-              tools/profile_stream.profile: the pipeline and the same frames
-              coded one at a time through compress_framed and
+              compress_framed of their chunk, no retry. The overlap gate:
+              frames 0 and 1 dispatched with a SLEEP_MS torch.cuda._sleep
+              queued between them; assemble_uncompress and assemble_compress
+              of frame 0 must each return while an event recorded after the
+              sleep is still pending (each waits for its own frame's event
+              only). Then tools/profile_stream.profile: the pipeline and the
+              same frames coded one at a time through compress_framed and
               uncompress_framed, in turns, with the host's time by stage (a
               line a run; GB/s of each, a {"stream": [...]} line of
-              bench.py's stage record); then, on
+              bench.py's stage record); an encoded frame's results back
+              whole against lengths first (profile_stream.fetch_choice); the
+              card's busy share of one stream decode from a profile_to
+              trace (profile_stream.busy_share); then, on
               files in a temporary directory at 64 MiB, compress_file cut at
               25/60/97% (and one with junk after it) and resume_compress_file
               back to the same bytes, an output cut and resume_uncompress_file,
@@ -199,6 +209,10 @@ MAIN_BYTES = 64 << 20
 # size (BENCH_STREAM_BYTES), in frames of bench.py's BATCH blocks.
 STREAM_BYTES = 676_000_000
 STREAM_BLOCKS_PER_FRAME = 128
+# Phase 13's overlap gate: the sleep queued between two frames, and the
+# sleep timed to find the card's cycles a millisecond.
+SLEEP_MS = 50
+SLEEP_PROBE_CYCLES = 20_000_000
 # The H100 SXM's device memory rate, and its float32 rate outside the tensor
 # cores, taken for the codec's integer operations (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -341,6 +355,7 @@ def stream_phase(card: str, name: str, raw_main: bytes) -> dict[str, int]:
           f"{n_frames // 2} and {n_frames - 1} equal compress_framed of their chunk; retries 0; decoder "
           f"launches {dec_launches} (one a frame), encoder launches {enc_launches} (the {on_card} frames "
           f"with a block on the card)", flush=True)
+    overlap_check(card, chunks[:2], frames[:2])
     del frames, chunks
 
     # The timed turns: the pipeline and the same frames one at a time
@@ -362,6 +377,15 @@ def stream_phase(card: str, name: str, raw_main: bytes) -> dict[str, int]:
           f"compress_framed {best['compress_serial']:.4f}, uncompress_framed {best['uncompress_serial']:.4f} "
           f"GB/s (best of 2 turns each)", flush=True)
     print(json.dumps({"stream": record.results}), flush=True)
+    fetch = profile_stream.fetch_choice(raw, bpf, "cuda")
+    print(f"[13 stream] on {card}: an encoded frame's results back, {fetch['rows']} rows: whole rows behind an "
+          f"event {fetch['whole_rows_ms']:.3f} ms ({fetch['whole_rows_bytes']} bytes), lengths first "
+          f"{fetch['lengths_first_ms']:.3f} ms ({fetch['lengths_first_bytes']} bytes), medians of 5", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        busy = profile_stream.busy_share(comp, "cuda", tmp)
+    print(f"[13 stream] on {card}: uncompress_stream of the {n_frames} frames under profile_to "
+          f"{busy['seconds']:.4f} s, the card busy {busy['device_busy_s']:.4f} s: busy share "
+          f"{busy['busy_share']:.4f} ({busy['kernels']} kernels, {busy['copies']} copies)", flush=True)
     del comp
 
     # Resume on files: a kill during compress, one during decompress, and the CLI.
@@ -402,6 +426,42 @@ def stream_phase(card: str, name: str, raw_main: bytes) -> dict[str, int]:
           f"`python -m snappy_tpu_torch decompress` (no --device) equal to the input in {t_cli:.1f} s "
           f"with the process start", flush=True)
     return {"decode_blocks": dec_launches, "encode_blocks": enc_launches}
+
+
+def overlap_check(card: str, chunks: list[bytes], frames: list[bytes]) -> None:
+    """Phase 13's gate on the pipeline's overlap: frames k and k+1 are
+    dispatched with about SLEEP_MS of ``torch.cuda._sleep`` queued between
+    them, and an event after the sleep. The assemble of frame k must return
+    while that event is still pending, in both directions: it waits for its
+    own frame only."""
+    import torch
+
+    from snappy_tpu_torch.parallel import host as fhost
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(SLEEP_PROBE_CYCLES)
+    end.record()
+    end.synchronize()
+    cycles = int(SLEEP_PROBE_CYCLES / start.elapsed_time(end) * SLEEP_MS)
+    for direction, dispatch, assemble, given, want in (
+        ("uncompress", fhost.dispatch_uncompress, fhost.assemble_uncompress, frames, chunks),
+        ("compress", fhost.dispatch_compress, fhost.assemble_compress, chunks, frames),
+    ):
+        torch.cuda.synchronize()
+        first = dispatch(given[0])
+        torch.cuda._sleep(cycles)
+        after = torch.cuda.Event()
+        after.record()
+        second = dispatch(given[1])
+        t0 = time.perf_counter()
+        got = assemble(first)
+        pending = not after.query()
+        t_first = time.perf_counter() - t0
+        check(got == want[0] and assemble(second) == want[1], f"assemble_{direction} gave other bytes")
+        check(pending, f"assemble_{direction} of frame k waited for the {SLEEP_MS} ms sleep queued after it")
+        print(f"[13 stream] on {card}: assemble_{direction} of frame k returned in {t_first * 1e3:.1f} ms while "
+              f"the {SLEEP_MS} ms sleep queued after it ran on ({cycles} cycles)", flush=True)
 
 
 def free_port() -> int:
@@ -502,12 +562,10 @@ def mesh_phase(card: str, raw_main: bytes, routed_frame: bytes, dev, rank_device
     pad = len(rows) - len(host_idx)
     check(k_olens[len(host_idx):].tolist() == [0] * pad and not bool(k_out[len(host_idx):].any()),
           "the encode kernel wrote to a padding row")
-    starts = np.array([idx.block_ranges()[i][0] for i in host_idx], np.int64)
+    span = np.frombuffer(b"".join(frame[s:e] for s, e in (idx.block_ranges()[i] for i in host_idx)), np.uint8)
     d_clens = idx.comp_lens[host_idx].astype(np.int64)
     d_ulens = np.array([idx.block_ulen(int(i)) for i in host_idx], np.int64)
-    comp, d_clens, d_ulens = fhost.block_batch(np.frombuffer(frame, np.uint8), starts, d_clens, d_ulens, BLOCK,
-                                               len(rows))
-    d_args = (to_device(comp, dev), to_device(d_clens, dev), to_device(d_ulens, dev), BLOCK)
+    d_args = (*fhost.block_batch(span, d_clens, d_ulens, BLOCK, len(rows), dev), BLOCK)
     k_out, k_ok, k_total = cuda_decode.decode_blocks(*d_args)
     p_out, p_ok, p_total = decode_torch.decode_blocks(*d_args)
     err_d = max_err(k_out, p_out)
@@ -528,14 +586,14 @@ def mesh_phase(card: str, raw_main: bytes, routed_frame: bytes, dev, rank_device
     s = distributed.compress_blocks(buf[:n_blocks], blens[:n_blocks], mesh4)
     check(all(torch.equal(t, torch.cat(parts)) for got, parts in zip(g, s) for t in got),
           "gathered encode differs from its shards")
-    comp, d_clens, d_ulens, out_size = fhost.frame_batch(frame, idx)
-    g = distributed.decompress_blocks(comp, d_clens, d_ulens, mesh4, out_size, gather=True)
-    s = distributed.decompress_blocks(comp, d_clens, d_ulens, mesh4, out_size)
+    whole = fhost.frame_batch(frame, idx, device=dev)
+    g = distributed.decompress_blocks(*whole[:3], mesh4, whole[3], gather=True)
+    s = distributed.decompress_blocks(*whole[:3], mesh4, whole[3])
     check(all(torch.equal(t, torch.cat(parts)) for got, parts in zip(g, s) for t in got),
           "gathered decode differs from its shards")
     check(bool(g[1][0].all()) and g[0][0].cpu().numpy().tobytes() == raw_main, "gathered decode is not bit-exact")
     del g, s
-    whole = (to_device(comp, dev), to_device(d_clens, dev), to_device(d_ulens, dev), out_size)
+    out_size = whole[3]
     quarters = [tuple(a[k * n_blocks // 4 : (k + 1) * n_blocks // 4] for a in whole[:3]) + (out_size,)
                 for k in range(4)]
     dec_one = time_device_fn(cuda_decode.decode_blocks, whole, iters=10) * 1e3
@@ -952,13 +1010,16 @@ def main() -> int:
         calls.append(time.perf_counter() - t0)
         check(again == raw_main, "repeat uncompress_framed returned wrong bytes")
     idx = framed.parse_index(frame)
-    b_comp, b_clens, b_ulens, out_size = fhost.frame_batch(frame, idx)
-    comp = torch.from_numpy(b_comp).to(dev)
-    clens = torch.from_numpy(b_clens).to(dev)
-    ulens = torch.from_numpy(b_ulens).to(dev)
+    # The batch as uncompress_framed builds it: rows packed on the card,
+    # held against the host's row-by-row pack.
+    comp, clens, ulens, out_size = fhost.frame_batch(frame, idx, device=dev)
+    b_clens = idx.comp_lens.astype(np.int64)
+    b_starts = idx.payload_start + np.concatenate([[0], np.cumsum(b_clens)[:-1]])
+    check(torch.equal(comp.cpu(), torch.from_numpy(pack_rows(np.frombuffer(frame, np.uint8), b_starts, b_clens))),
+          "the rows packed on the card differ from pack_rows's")
     kernel_ms = device_ms(cuda_decode.decode_blocks, (comp, clens, ulens, out_size), 20)
     plain_ms = device_ms(decode_torch.decode_blocks, (comp, clens, ulens, out_size), 3)
-    k1_bound = bound(int(b_clens.sum()) + 8 * len(b_clens), int(b_ulens.sum()) + 5 * len(b_ulens))
+    k1_bound = bound(int(b_clens.sum()) + 8 * len(b_clens), int(idx.total_len) + 5 * len(b_clens))
     k_out, k_ok, _ = cuda_decode.decode_blocks(comp, clens, ulens, out_size)
     p_out, p_ok, _ = decode_torch.decode_blocks(comp, clens, ulens, out_size)
     err4 = max_err(k_out, p_out)
@@ -967,8 +1028,9 @@ def main() -> int:
     gb = len(raw_main) / 1e9
     smem, per_sm = cuda_decode.occupancy()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"[4 slice] 64 MiB frame, {idx.n_blocks} blocks, C={b_comp.shape[1]}, "
-          f"compressed {len(frame)} bytes: byte-identical; kernel launches {main_launches}; "
+    print(f"[4 slice] 64 MiB frame, {idx.n_blocks} blocks, C={comp.shape[1]}, "
+          f"compressed {len(frame)} bytes: byte-identical; rows packed on the card equal pack_rows's; kernel "
+          f"launches {main_launches}; "
           f"first call {t_first:.4f} s; the kernel takes {smem} bytes of shared memory a block, {per_sm} blocks "
           f"an SM, {per_sm * sms} at once on {sms} SMs: {-(-idx.n_blocks // (per_sm * sms))} wave(s)", flush=True)
     print(f"[4 slice] on {card}: decode launch {kernel_ms:.4f} ms ({gb / kernel_ms * 1e3:.3f} GB/s), "
@@ -1189,7 +1251,7 @@ def main() -> int:
 
     # 11. the decode A/B: K1 against K3 on the same streams
     own_idx = framed.parse_index(frame_w)
-    own = fhost.frame_batch(frame_w, own_idx)
+    own = tuple(a.numpy() if torch.is_tensor(a) else a for a in fhost.frame_batch(frame_w, own_idx))
     own_streams = [frame_w[s:e] for s, e in own_idx.block_ranges()]
     gate = "libsnappy not installed: its gate did not run"
     if libsnappy.available():
@@ -1269,10 +1331,13 @@ def main() -> int:
     # 12. the probes P1-P6: gates, then the tool's timing runs as the main path
     t0 = time.perf_counter()
     probes = exp_vector_walk.probes("all", dev)
+    edge_q0 = set(exp_vector_walk.drain_gate_inputs()[1][0].tolist())
+    check({(1 << 31) - 2, (1 << 31) - 1} <= edge_q0, "P4's edge gate holds no q0 at INT_MAX - 1 and INT_MAX")
     gates = {p.name: exp_vector_walk.gate(p) for p in probes}
     print(f"[12 probes] {len(probes)} variants of P1-P6 identical to their plain versions at their gate knobs "
           f"(P2 and P3 also on the reference generator's stalled data, P4 on fields drawn per lane with repeated "
-          f"rows and on rows past the arrays' ends, P6 on rows past the output's ends)", flush=True)
+          f"rows and on rows past the arrays' ends, q0 at INT_MAX - 1 and INT_MAX among them, where q0 + 1 and "
+          f"q0 + 2 wrap; P6 on rows past the output's ends)", flush=True)
     for variant, g in gates.items():
         print(f"[12 probes] {variant:30s} at knob {g['plain_knob']}: kernel {g['kernel_ms']:.4f} ms, "
               f"plain version {g['plain_ms']:.4f} ms", flush=True)

@@ -2,7 +2,9 @@
 
 The source is the JAX package's ``snappy_tpu/native/snappy_native.cpp``,
 compiled from its place in the repository (never copied) into this
-package's build directory. Built on first use, or by hand:
+package's build directory, with the port's own ``crc32_rows.cpp`` (the
+framed container's crcs, many blocks a call). Built on first use, or by
+hand:
 
     python -m snappy_tpu_torch.native.build
 
@@ -21,6 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG / "_build"
 SOURCE = _PKG.parent / "snappy_tpu" / "native" / "snappy_native.cpp"
+CRC_SOURCE = Path(__file__).resolve().parent / "crc32_rows.cpp"
 
 # No -march=native: the build directory may travel with a copy of the tree
 # to another host, and the library is keyed by source and flags only.
@@ -62,7 +65,7 @@ def build() -> Path:
     """Path of the native codec library, compiling it if needed."""
     if not SOURCE.exists():
         raise RuntimeError(f"native codec source not found at {SOURCE}")
-    return build_shared(["g++", *CXXFLAGS], [SOURCE], "snappy_native")
+    return build_shared(["g++", *CXXFLAGS], [SOURCE, CRC_SOURCE], "snappy_native")
 
 
 if __name__ == "__main__":

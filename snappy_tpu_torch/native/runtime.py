@@ -2,8 +2,9 @@
 
 The host side of the port: the raw-format encoder, the batched headerless
 block encoder, the reference decoder and ``scan_blocks``, the segmenter
-that cuts a raw stream into block-decodable pieces. A failed build or load
-raises; ``available()`` is the one probe, for the API's default backend.
+that cuts a raw stream into block-decodable pieces; and ``crc32_rows``,
+the crcs of many buffers in one call. A failed build or load raises;
+``available()`` is the one probe, for the API's default backend.
 """
 
 from __future__ import annotations
@@ -58,6 +59,8 @@ def _load():
         ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint64,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
     ]
+    lib.snappy_tpu_torch_crc32_rows.restype = None
+    lib.snappy_tpu_torch_crc32_rows.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
     _lib = lib
     return lib
 
@@ -179,3 +182,18 @@ def scan_blocks(body, ulen: int) -> tuple[np.ndarray, np.ndarray] | None:
     if rc < 0:
         raise CorruptInputError("corrupt snappy stream")
     return starts[:rc].astype(np.int64), oplens[:rc].astype(np.int32)
+
+
+def crc32_rows(ptrs: np.ndarray, lens: np.ndarray, out: np.ndarray) -> None:
+    """``out[i]`` = ``zlib.crc32`` of the ``lens[i]`` bytes at address
+    ``ptrs[i]`` (uint64, int64 and uint32 arrays of one length, contiguous),
+    in one call that holds no interpreter lock. The caller keeps the
+    buffers alive."""
+    if not (ptrs.dtype == np.uint64 and lens.dtype == np.int64 and out.dtype == np.uint32
+            and len(ptrs) == len(lens) == len(out)):
+        raise TypeError("crc32_rows takes uint64 ptrs, int64 lens and uint32 out of one length")
+    if not (ptrs.flags.c_contiguous and lens.flags.c_contiguous and out.flags.c_contiguous):
+        raise ValueError("crc32_rows takes contiguous arrays")
+    if (lens < 0).any():
+        raise ValueError("negative buffer length")
+    _load().snappy_tpu_torch_crc32_rows(ptrs.ctypes.data, lens.ctypes.data, len(ptrs), out.ctypes.data)

@@ -308,7 +308,8 @@ def drain(knob: int, q0: torch.Tensor, r: torch.Tensor, fld: torch.Tensor, src: 
     t = torch.arange(knob, device=src.device)
     q = q0[:knob].long()
     shift, ph, lo, n = (v[:, None] for v in _fields(fld.reshape(-1, 8, LANES)[t // 8, t % 8, 0]))
-    a, b, c = (src[(q + k).clamp(0, last)] for k in range(3))
+    # q0 + 1 and q0 + 2 are int32 sums in the reference: they wrap before the clamp.
+    a, b, c = (src[((q + k + (1 << 31)) % (1 << 32) - (1 << 31)).clamp(0, last)] for k in range(3))
     sel = lane >= ph
     m = _roll(torch.where(sel, a, b), shift)
     m2 = _roll(torch.where(sel, b, c), shift)

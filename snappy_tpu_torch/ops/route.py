@@ -5,7 +5,8 @@ decisions. A host detector samples each block's 4-byte grams and measures
 their duplicate ratio; blocks below ``DUP_THRESHOLD`` (jpeg, the image
 streams of a pdf) are compressed on the host by the native C++ greedy
 encoder, and the rest go to the block encoder on the device. The device
-launch is queued first, so the host encoders run while the kernel does.
+launch is queued first, so the host encoders run while the kernel does,
+and its results come back behind an event of their own (``HostCopy``).
 """
 
 from __future__ import annotations
@@ -14,11 +15,10 @@ import concurrent.futures
 import os
 
 import numpy as np
-import torch
 
 from ..native import runtime as nat
 from ..utils.profiling import trace_annotation
-from .host import to_device
+from .host import HostCopy, stage
 from .select import block_encoder
 
 #: sampled-gram duplicate ratio below which a block is treated as
@@ -104,26 +104,26 @@ def dispatch_routed(buf: np.ndarray, blens: np.ndarray, host_idx, device, min_pr
         with trace_annotation("route.dispatch_device"):
             # The whole batch goes over in one copy and the device rows are
             # picked there: cheaper than a gather of them on the host.
-            blocks, lens = to_device(buf, device), to_device(blens, device)
             if len(dev_idx) < n_blocks:
-                pick = to_device(dev_idx, device)
+                blocks, lens, pick = stage([buf, blens, dev_idx], device)
                 blocks, lens = blocks[pick], lens[pick]
-            dev = encode(blocks, lens, min_profit)
+            else:
+                blocks, lens = stage([buf, blens], device)
+            # Whole rows come back: their lengths are not known on the host
+            # before the kernel has run, and waiting for them would wait for
+            # every batch queued before this one.
+            dev = HostCopy(encode(blocks, lens, min_profit))
     with trace_annotation("route.native_streams"):
         native = native_streams_for(buf, blens, host_idx)
     return dev, dev_idx, native, n_blocks
 
 
-def device_streams(out: torch.Tensor, olens: torch.Tensor) -> list[bytes]:
-    """Wait for the block encoder's (out, olens) and return each row's tag
-    stream. Only each row's first ``olens`` bytes are copied back."""
-    lens = olens.cpu().numpy().astype(np.int64)
-    if (lens < 0).any():
+def device_streams(out: np.ndarray, olens: np.ndarray) -> list[bytes]:
+    """Each row's tag stream, from the block encoder's (out, olens) on the
+    host: the first ``olens`` bytes of each row."""
+    if (olens < 0).any():
         raise RuntimeError("the block encoder refused a row it was given")
-    keep = torch.arange(out.shape[1], device=out.device)[None, :] < olens[:, None]
-    flat = out[keep].cpu().numpy()
-    ends = np.cumsum(lens)
-    return [flat[e - n : e].tobytes() for e, n in zip(ends.tolist(), lens.tolist())]
+    return [out[i, :n].tobytes() for i, n in enumerate(olens.tolist())]
 
 
 def assemble_routed(ticket) -> list[bytes]:
@@ -132,7 +132,7 @@ def assemble_routed(ticket) -> list[bytes]:
     streams: list[bytes] = [b""] * n_blocks
     if dev is not None:
         with trace_annotation("route.assemble_device"):
-            for i, s in zip(dev_idx.tolist(), device_streams(*dev)):
+            for i, s in zip(dev_idx.tolist(), device_streams(*dev.wait())):
                 streams[i] = s
     for i, s in native.items():
         streams[i] = s

@@ -5,9 +5,11 @@ of blocks is sharded over a ``jax.sharding.Mesh`` and ``shard_map`` runs the
 block codec on each device's rows. Here a :class:`Mesh` is an ordered tuple
 of ``torch.device``, and the same split is plain launches in mesh order:
 the batch is cut into ``mesh.size`` equal contiguous shards, each shard is
-copied to its device (pinned, ``non_blocking``) and the block encoder (K2)
-or decoder (K1) is launched on it, every shard queued before any result is
-read. Nothing is compiled, so nothing is cached.
+copied to its device (pinned, ``non_blocking``; a decode batch built on a
+device goes from there) and the block encoder (K2) or decoder (K1) is
+launched on it, every shard queued before any result is read; ``to_host``
+brings each shard's results back behind an event of its own. Nothing is
+compiled, so nothing is cached.
 
 A device may appear more than once: its shards then queue one after the
 other on its current stream. That is how one card runs a mesh of several
@@ -28,7 +30,7 @@ import torch.distributed as dist
 
 from ..core.config import DEFAULT_MIN_PROFIT
 from ..ops import select
-from ..ops.host import to_device
+from ..ops.host import HostCopy, stage
 
 AXIS = "blocks"
 
@@ -121,7 +123,7 @@ def compress_blocks(
     outs, olens = [], []
     for dev, (lo, hi) in zip(mesh.devices, _shards(mesh, len(blocks))):
         encode = select.block_encoder(dev, encoder)
-        out, olen = encode(to_device(blocks[lo:hi], dev), to_device(blens[lo:hi], dev), mp)
+        out, olen = encode(*stage([blocks[lo:hi], blens[lo:hi]], dev), mp)
         outs.append(out)
         olens.append(olen)
     if gather:
@@ -129,26 +131,35 @@ def compress_blocks(
     return outs, olens
 
 
-def decompress_blocks(
-    comp: np.ndarray, clens: np.ndarray, ulens: np.ndarray, mesh: Mesh, out_size: int, gather: bool = False
-):
+def decompress_blocks(comp, clens, ulens, mesh: Mesh, out_size: int, gather: bool = False):
     """Decode a uint8[NB, C] batch of headerless block streams sharded over
-    ``mesh``. Returns (outs, oks, totals) per device in mesh order, as
-    compress_blocks does."""
-    comp = np.ascontiguousarray(comp)
-    clens = np.ascontiguousarray(clens, dtype=np.int32)
-    ulens = np.ascontiguousarray(ulens, dtype=np.int32)
+    ``mesh``: host arrays, or tensors (``host.frame_batch``) that each
+    shard's device takes from where they lie. Returns (outs, oks, totals)
+    per device in mesh order, as compress_blocks does."""
+    if isinstance(comp, torch.Tensor):
+        def shard(dev, lo, hi):
+            return [t[lo:hi].to(dev, non_blocking=True) for t in (comp, clens, ulens)]
+    else:
+        args = (comp, np.asarray(clens, dtype=np.int32), np.asarray(ulens, dtype=np.int32))
+
+        def shard(dev, lo, hi):
+            return stage([a[lo:hi] for a in args], dev)
     outs, oks, totals = [], [], []
     for dev, (lo, hi) in zip(mesh.devices, _shards(mesh, len(comp))):
-        out, ok, total = select.block_decoder(dev)(
-            to_device(comp[lo:hi], dev), to_device(clens[lo:hi], dev), to_device(ulens[lo:hi], dev), out_size
-        )
+        out, ok, total = select.block_decoder(dev)(*shard(dev, lo, hi), out_size)
         outs.append(out)
         oks.append(ok)
         totals.append(total)
     if gather:
         return _gather(outs, mesh), _gather(oks, mesh), _gather(totals, mesh)
     return outs, oks, totals
+
+
+def to_host(sharded) -> list[HostCopy]:
+    """The per-shard results of ``compress_blocks`` or ``decompress_blocks``
+    (``gather=False``) on their way to the host: one ``HostCopy`` a shard,
+    each behind an event of its own."""
+    return [HostCopy(results) for results in zip(*sharded)]
 
 
 def initialize_multihost(**kwargs) -> None:

@@ -33,10 +33,30 @@ from ..core import varint
 from ..core.config import DEFAULT_FRAME_CONFIG, FrameConfig
 from ..core.errors import CorruptInputError
 from ..native import runtime as nat
+from ..ops.host import HOST_POOL, HOST_THREADS
 
 MAGIC = b"SNPTPU01"
 _HEADER = struct.Struct("<8sIIQI")
 FLAG_CRC = 1
+
+
+def crc32s(blocks: list) -> list[int]:
+    """``zlib.crc32`` of each of ``blocks`` (bytes-like, contiguous), in
+    order: the blocks cut into one run a thread of ``HOST_POOL``, each run
+    one native call (``native.runtime.crc32_rows``), which holds no
+    interpreter lock. zlib.crc32 releases it too, but a call a 64 KiB block
+    hands the lock over so often that threads of such calls run no faster
+    than one: without the native library the crcs run on this thread."""
+    if len(blocks) < 2 or not nat.available():
+        return [zlib.crc32(b) for b in blocks]
+    views = [np.frombuffer(b, np.uint8) for b in blocks]
+    ptrs = np.fromiter((v.ctypes.data for v in views), np.uint64, len(views))
+    lens = np.fromiter((v.size for v in views), np.int64, len(views))
+    out = np.empty(len(views), np.uint32)
+    per = -(-len(views) // HOST_THREADS)
+    runs = [slice(i, i + per) for i in range(0, len(views), per)]
+    list(HOST_POOL.map(lambda r: nat.crc32_rows(ptrs[r], lens[r], out[r]), runs))
+    return out.tolist()
 
 
 class FrameIndex:
@@ -126,7 +146,7 @@ def build_frame(
     config: FrameConfig = DEFAULT_FRAME_CONFIG,
 ) -> bytes:
     """Assemble a frame from per-block tag streams (+ raw blocks for crcs)."""
-    crcs = [zlib.crc32(b) for b in block_raws] if config.checksum else None
+    crcs = crc32s(block_raws) if config.checksum else None
     header = build_frame_header([len(s) for s in block_streams], crcs, total_len, config)
     return header + b"".join(block_streams)
 
@@ -136,10 +156,10 @@ def verify_crcs_range(idx: FrameIndex, blocks_out: list, first_block: int) -> No
     ``first_block``."""
     if idx.crcs is None:
         return
-    for j, b in enumerate(blocks_out):
-        i = first_block + j
-        if zlib.crc32(b) != int(idx.crcs[i]):
-            raise CorruptInputError(f"crc mismatch in block {i}")
+    want = idx.crcs[first_block : first_block + len(blocks_out)]
+    bad = np.flatnonzero(np.array(crc32s(blocks_out), np.uint32) != want)
+    if len(bad):
+        raise CorruptInputError(f"crc mismatch in block {first_block + int(bad[0])}")
 
 
 def verify_crcs(idx: FrameIndex, blocks_out: list) -> None:

@@ -4,11 +4,14 @@ The counterpart of ``snappy_tpu/parallel/host.py``. ``dispatch_compress``
 cuts the stream into blocks, routes the incompressible ones to the host
 encoder and launches the block encoder on the rest, asynchronously on the
 current stream; ``assemble_compress`` waits for it and builds the frame.
-``dispatch_uncompress`` packs the frame's blocks into one batch, copies it
-to the device and launches the block decoder; ``assemble_uncompress``
+``dispatch_uncompress`` copies the frame's payload to the device, builds
+the batch's rows there and launches the block decoder; ``assemble_uncompress``
 waits for it, checks every block's ``ok`` flag and crc, and joins the
 blocks. The splits let a pipeline prepare frame k+1 while the device works
-on frame k.
+on frame k: each dispatch queues the copy of its results to the host behind
+its launch, with an event of its own (``ops.host.HostCopy``), so an
+assemble waits for its own frame and not for the frames queued after it.
+Crcs run on a thread a core (``framed.crc32s``).
 
 With ``mesh=`` (``distributed.mesh_1d``) the batch is padded to a multiple
 of the mesh size and sharded over its devices, one launch a shard, and
@@ -20,15 +23,12 @@ frame is a function of the data and the config alone, never of the mesh.
 
 from __future__ import annotations
 
-import zlib
-
 import numpy as np
-import torch
 
 from ..core.config import DEFAULT_FRAME_CONFIG, FrameConfig
 from ..core.errors import CorruptInputError
 from ..ops import route
-from ..ops.host import as_u8, blockify, pack_rows, to_device
+from ..ops.host import HostCopy, as_u8, blockify, pack_batch
 from ..ops.select import block_decoder, check_encoder
 from ..utils.profiling import trace_annotation
 from . import distributed, framed
@@ -61,17 +61,17 @@ def dispatch_compress(data, config: FrameConfig = DEFAULT_FRAME_CONFIG, device="
             n_blocks = -(-len(inp) // bs)
             buf, blens = blockify(inp, bs, distributed.pad_block_count(n_blocks, mesh.size))
             kind = "mesh"
-            part = (distributed.compress_blocks(buf, blens, mesh, min_profit=config.min_profit, encoder=encoder),
-                    n_blocks)
-        crcs = [zlib.crc32(inp[i : i + bs]) for i in range(0, len(inp), bs)] if config.checksum else None
+            sharded = distributed.compress_blocks(buf, blens, mesh, min_profit=config.min_profit, encoder=encoder)
+            part = (distributed.to_host(sharded), n_blocks)
+        crcs = framed.crc32s([inp[i : i + bs] for i in range(0, len(inp), bs)]) if config.checksum else None
     return (inp, config, kind, part, crcs)
 
 
-def mesh_streams(sharded, n_blocks: int) -> list[bytes]:
-    """Wait for the shards of ``distributed.compress_blocks`` and return the
-    tag streams of the first ``n_blocks`` rows, in block order."""
-    outs, olens = sharded
-    streams = [s for out, olen in zip(outs, olens) for s in route.device_streams(out, olen)]
+def mesh_streams(copies: list[HostCopy], n_blocks: int) -> list[bytes]:
+    """Wait for each shard's results (``distributed.to_host`` of
+    ``compress_blocks``) and return the tag streams of the first
+    ``n_blocks`` rows, in block order."""
+    streams = [s for c in copies for s in route.device_streams(*c.wait())]
     return streams[:n_blocks]
 
 
@@ -95,77 +95,68 @@ def compress_framed(data, config: FrameConfig = DEFAULT_FRAME_CONFIG, device="cu
     return assemble_compress(dispatch_compress(data, config, device, mesh, encoder))
 
 
-def block_batch(buf: np.ndarray, starts: np.ndarray, clens: np.ndarray, ulens: np.ndarray, block_size: int,
-                rows: int):
-    """The block decoder's host-side arguments for the streams
-    ``buf[starts[i] : starts[i] + clens[i]]`` of ``ulens[i]`` bytes, padded
-    with empty rows (clen = ulen = 0) to ``rows``: (comp uint8[rows, C],
-    clens int32[rows], ulens int32[rows])."""
-    n = len(starts)
-    if n and int(clens.max()) > MAX_TAG_BYTES_PER_BYTE * block_size + 1:
+def block_batch(span: np.ndarray, clens: np.ndarray, ulens: np.ndarray, block_size: int, rows: int, device="cpu"):
+    """The block decoder's arguments, on ``device``, for the streams that
+    lie end to end in ``span``, ``clens[i]`` bytes each, of ``ulens[i]``
+    bytes, padded with empty rows (clen = ulen = 0) to ``rows``: (comp
+    uint8[rows, C], clens int32[rows], ulens int32[rows]); the rows are
+    ``pack_rows``'s, built on the device (``ops.host.pack_batch``)."""
+    if len(clens) and int(clens.max()) > MAX_TAG_BYTES_PER_BYTE * block_size + 1:
         # No valid block is this long; refuse before sizing a batch by it.
         raise CorruptInputError("framed block longer than any valid tag stream")
-    pad = np.zeros(rows - n, np.int64)
-    comp = pack_rows(buf, np.concatenate([starts, pad]), np.concatenate([clens, pad]))
-    return comp, np.concatenate([clens, pad]).astype(np.int32), np.concatenate([ulens, pad]).astype(np.int32)
+    return pack_batch(span, clens, ulens, rows, device)
 
 
-def frame_batch(frame: bytes, idx: framed.FrameIndex, rows: int | None = None):
-    """The block decoder's host-side arguments for a frame with at least
-    one block: (comp uint8[rows, C], clens int32[rows], ulens int32[rows],
-    out_size); ``rows`` defaults to the block count."""
+def frame_batch(frame: bytes, idx: framed.FrameIndex, rows: int | None = None, device="cpu"):
+    """The block decoder's arguments, on ``device``, for a frame with at
+    least one block: (comp uint8[rows, C], clens int32[rows], ulens
+    int32[rows], out_size); ``rows`` defaults to the block count. Every
+    size comes from the index, so nothing waits for the device."""
     n = idx.n_blocks
     clens = idx.comp_lens.astype(np.int64)
-    starts = idx.payload_start + np.concatenate([[0], np.cumsum(clens)[:-1]])
     ulens = np.full(n, idx.block_size, np.int64)
     ulens[-1] = idx.block_ulen(n - 1)
-    buf = np.frombuffer(frame, np.uint8)
-    return (*block_batch(buf, starts, clens, ulens, idx.block_size, n if rows is None else rows), int(idx.block_size))
+    # The blocks' streams lie end to end in the payload.
+    span = np.frombuffer(frame, np.uint8, int(clens.sum()), idx.payload_start)
+    batch = block_batch(span, clens, ulens, idx.block_size, n if rows is None else rows, device)
+    return (*batch, int(idx.block_size))
 
 
 def dispatch_uncompress(frame: bytes, device="cuda", mesh=None):
     """Launch the decode of every block of ``frame`` on ``device`` (or over
-    ``mesh``). Returns a ticket for ``assemble_uncompress``."""
+    ``mesh``) and queue the copy of its results to the host. Returns a
+    ticket for ``assemble_uncompress``."""
     idx = framed.parse_index(frame)
     if idx.n_blocks == 0:
-        return (idx, None, None)
+        return (idx, None)
     if mesh is None:
-        comp, clens, ulens, out_size = frame_batch(frame, idx)
+        batch = frame_batch(frame, idx, device=device)
         with trace_annotation("framed.dispatch_uncompress"):
-            out, ok, _ = block_decoder(device)(
-                to_device(comp, device),
-                to_device(clens, device),
-                to_device(ulens, device),
-                out_size,
-            )
-        return (idx, [out], [ok])
-    comp, clens, ulens, out_size = frame_batch(frame, idx, distributed.pad_block_count(idx.n_blocks, mesh.size))
+            return (idx, [HostCopy(block_decoder(device)(*batch))])
+    # The rows are built on the first device of the mesh and each shard
+    # goes to its own from there.
+    comp, clens, ulens, out_size = frame_batch(frame, idx, distributed.pad_block_count(idx.n_blocks, mesh.size),
+                                               mesh.devices[0])
     with trace_annotation("framed.dispatch_uncompress"):
-        outs, oks, _ = distributed.decompress_blocks(comp, clens, ulens, mesh, out_size)
-    return (idx, outs, oks)
+        return (idx, distributed.to_host(distributed.decompress_blocks(comp, clens, ulens, mesh, out_size)))
 
 
-def join_rows(parts: list[torch.Tensor]) -> np.ndarray:
-    """The rows of the shards ``parts``, in order, as one host array: each
-    shard is copied back once, into its place."""
-    if len(parts) == 1:
-        return parts[0].cpu().numpy()
-    rows = torch.empty((sum(len(p) for p in parts), *parts[0].shape[1:]), dtype=parts[0].dtype)
-    lo = 0
-    for p in parts:
-        rows[lo : lo + len(p)].copy_(p)
-        lo += len(p)
-    return rows.numpy()
+def join_rows(parts: list[np.ndarray]) -> np.ndarray:
+    """The rows of the shards ``parts``, in order, as one host array."""
+    return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
 
-def assemble_uncompress(ticket) -> bytes:
+def assemble_uncompress_array(ticket) -> np.ndarray:
     """Wait for the blocks of ``dispatch_uncompress``, validate them and
-    join them. Raises CorruptInputError on a block that did not decode or
-    whose crc does not match."""
-    idx, outs, oks = ticket
+    return the stream they decode to as a uint8 host array: on a card, a
+    view of the pinned memory its rows came back in, which a stream writes
+    out without another copy. Raises CorruptInputError on a block that did
+    not decode or whose crc does not match."""
+    idx, copies = ticket
     if idx.n_blocks == 0:
-        return b""
+        return np.zeros(0, np.uint8)
     with trace_annotation("framed.assemble_uncompress"):
+        outs, oks, _ = zip(*(c.wait() for c in copies))
         ok = join_rows(oks)[: idx.n_blocks]
         if not ok.all():
             raise CorruptInputError(f"corrupt framed block {int(np.flatnonzero(~ok)[0])}")
@@ -174,7 +165,12 @@ def assemble_uncompress(ticket) -> bytes:
         body = join_rows(outs).reshape(-1)[: idx.total_len]
         bs = int(idx.block_size)
         framed.verify_crcs(idx, [body[i * bs : (i + 1) * bs] for i in range(idx.n_blocks)])
-        return body.tobytes()
+        return body
+
+
+def assemble_uncompress(ticket) -> bytes:
+    """``assemble_uncompress_array`` as bytes."""
+    return assemble_uncompress_array(ticket).tobytes()
 
 
 def uncompress_framed(frame: bytes, device="cuda", mesh=None) -> bytes:

@@ -160,9 +160,8 @@ def compress_framed(
                                           encoder=encoder)
     n_local = max(0, min(hi, n_blocks) - lo)
     local_crcs = np.zeros(hi - lo, np.uint32)
-    for i in range(n_local):
-        local_crcs[i] = zlib.crc32(local[i * bs : i * bs + int(blens[i])])
-    streams = host.mesh_streams(sharded, hi - lo)
+    local_crcs[:n_local] = framed.crc32s([local[i * bs : i * bs + int(blens[i])] for i in range(n_local)])
+    streams = host.mesh_streams(distributed.to_host(sharded), hi - lo)
 
     # The exchange: per-block compressed lengths (and crcs).
     all_olens = _allgather_rows(np.array([len(s) for s in streams], np.int32))[:n_blocks]
@@ -250,13 +249,14 @@ def uncompress_framed(in_path: str, out_path: str, mesh: distributed.Mesh | None
         if len(payload) < size:
             raise CorruptInputError("frame payload truncated")
 
-    starts = np.array([s - base for s, _ in ranges], np.int64)
     clens = np.array([e - s for s, e in ranges], np.int64)
     ulens = np.array([idx.block_ulen(lo + i) for i in range(n_local)], np.int64)
     bs = int(idx.block_size)
-    comp, clens32, ulens32 = host.block_batch(np.frombuffer(payload, np.uint8), starts, clens, ulens, bs, hi - lo)
-    outs, oks, _ = distributed.decompress_blocks(comp, clens32, ulens32, _local_mesh(mesh), bs)
-
+    local_mesh = _local_mesh(mesh)
+    # The payload's blocks lie end to end.
+    batch = host.block_batch(np.frombuffer(payload, np.uint8), clens, ulens, bs, hi - lo, local_mesh.devices[0])
+    copies = distributed.to_host(distributed.decompress_blocks(*batch, local_mesh, bs))
+    outs, oks, _ = zip(*(c.wait() for c in copies))
     ok = host.join_rows(oks)[:n_local]
     if not ok.all():
         raise CorruptInputError(f"corrupt framed block {lo + int(np.flatnonzero(~ok)[0])}")

@@ -6,14 +6,18 @@ sequence of self-delimiting frames (``parallel/framed.py``),
 each covering up to ``blocks_per_frame`` blocks, byte for byte the
 reference's format, so a sequence written or torn by either package reads
 and resumes in the other. The pipeline keeps a bounded queue of in-flight
-dispatches (``parallel/host.py``): a dispatch queues its copies and kernel
-on the current CUDA stream and returns without waiting for the card, so
-while the card codes chunk k the host reads chunk k+1, and assembles and
-writes frame k-d. Memory stays bounded by ``PIPELINE_DEPTH`` + 1 frames.
+dispatches (``parallel/host.py``): a dispatch queues its copy in, its
+kernel and the copy of its results into pinned host memory on the current
+CUDA stream, records an event after them and returns without waiting for
+the card, so while the card codes chunk k the host reads chunk k+1, and
+assembles and writes frame k-d, waiting for that frame's event alone.
+Memory, pinned buffers included, stays bounded by ``PIPELINE_DEPTH`` + 1
+frames.
 
 Recovery: blocks are stateless and idempotent, so a frame whose decode
-fails with anything but ``CorruptInputError`` is dispatched again from the
-frame bytes the pipeline still holds, up to ``max_retries`` times, before
+fails with anything but ``CorruptInputError`` (a fault on the card raises
+at the frame's event wait) is dispatched again from the frame bytes the
+pipeline still holds, up to ``max_retries`` times, before
 the error is raised. Corrupt data fails the same way every time and is
 never retried. ``uncompress_stream`` counts retries in ``last_stats``.
 
@@ -146,11 +150,11 @@ def uncompress_stream(src: BinaryIO, dst: BinaryIO, device="cuda", max_retries: 
     retry_exc: str | None = None
     pending: deque = deque()  # (frame bytes, ticket)
 
-    def commit(frame_bytes, ticket) -> bytes:
+    def commit(frame_bytes, ticket) -> np.ndarray:
         nonlocal retries, retry_exc
         for attempt in range(max_retries + 1):
             try:
-                return _host.assemble_uncompress(ticket)
+                return _host.assemble_uncompress_array(ticket)
             except CorruptInputError:
                 # Corrupt data decodes the same way every time: a second
                 # dispatch cannot succeed.
@@ -310,7 +314,7 @@ def resume_uncompress_file(in_path: str, out_path: str, device="cuda", mesh=None
                 else:
                     pending.append(_host.dispatch_uncompress(frame, device=device, mesh=mesh))
             while pending and (len(pending) > PIPELINE_DEPTH or eof):
-                out = _host.assemble_uncompress(pending.popleft())
+                out = _host.assemble_uncompress_array(pending.popleft())
                 dst.write(out)
                 total += len(out)
     return total

@@ -42,7 +42,7 @@ def mesh_devices(n_devices: int, device: str) -> list[torch.device]:
 
 
 def _same_everywhere(gathered: list[torch.Tensor], shards: list[torch.Tensor]) -> bool:
-    whole = host.join_rows(shards)
+    whole = host.join_rows([r for c in distributed.to_host([shards]) for r in c.wait()])
     return all(np.array_equal(g.cpu().numpy(), whole) for g in gathered)
 
 

@@ -118,14 +118,12 @@ def drain_inputs(seed: int = 1):
 
 
 # Rows past either end of P4's output, and rows whose next ones wrap: the
-# kernels clamp r (and r + 1) into the output and q0 (and q0 + 1, q0 + 2)
-# into the source, each sum wrapping as the reference's int32 arithmetic
-# does. q0 stops short of INT_MAX - 1: from there the plain version, which
-# adds q0 + 1 and q0 + 2 in int64, clamps where the reference and the
-# kernel wrap (ROADMAP Queue 3).
+# kernels and the plain versions clamp r (and r + 1) into the output and q0
+# (and q0 + 1, q0 + 2) into the source, each sum wrapping as the
+# reference's int32 arithmetic does.
 DRAIN_EDGE_ROWS = (-1, -7, NSRC - 1, NSRC, NSRC + 6, NSRC + 7, NSRC + 8, 600, -(1 << 31), (1 << 31) - 1,
                    (1 << 31) - 2, (1 << 31) - 3)
-DRAIN_EDGE_Q0 = tuple(v for v in DRAIN_EDGE_ROWS if v < (1 << 31) - 2)
+DRAIN_EDGE_Q0 = DRAIN_EDGE_ROWS
 
 
 def drain_gate_inputs(seed: int = 9) -> list[tuple]:

@@ -420,8 +420,8 @@ def test_unknown_encoder_raises_before_data_moves(entry, tmp_path, monkeypatch):
     def moved(*_):
         raise AssertionError("data moved before the encoder's name was checked")
 
-    for mod in (route, port_framed_host, distributed):
-        monkeypatch.setattr(mod, "to_device", moved)
+    for mod in (route, distributed):
+        monkeypatch.setattr(mod, "stage", moved)
     with pytest.raises(ValueError, match="unknown block encoder"):
         _entry_points(tmp_path)[entry]("xla")
 

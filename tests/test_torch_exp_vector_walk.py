@@ -352,7 +352,7 @@ def test_drain_gate_inputs(ref, mode):
     (q0, r, fld, src), (eq0, er, efld, _) = tool.drain_gate_inputs()
     assert (fld != fld[:, :, :1]).any() and (r[1::4] == r[::4]).all()
     assert set(tool.DRAIN_EDGE_Q0) <= set(eq0.tolist()) and set(tool.DRAIN_EDGE_ROWS) <= set(er.tolist())
-    assert max(eq0) < (1 << 31) - 2 and efld is fld
+    assert {(1 << 31) - 2, (1 << 31) - 1} <= set(eq0[:256:5].tolist()) and efld is fld
     want = _drain_kernel(ref, mode)(_knob(256), *(jnp.asarray(a) for a in (q0, r, fld, src)))
     _eq(pt.drain(256, _t(q0), _t(r), _t(fld), _t(src), mode), want)
     want = np.asarray(_drain_kernel(ref, mode)(_knob(256), *(jnp.asarray(a) for a in (eq0, er, fld, src))))
@@ -367,9 +367,9 @@ def test_drain_serial_wraps_q0_near_int_max(ref):
     """The serial drain reads rows q0, q0 + 1 and q0 + 2; the script adds
     them in int32, so at q0 = INT_MAX - 1 and INT_MAX they wrap to INT_MIN
     and clamp to row 0, as the kernel does (its g++ emulation holds it to
-    the same rows). The plain version adds in int64 and clamps to the last
-    row (ROADMAP Queue 3): the script is held to the plain version given
-    the rows the wrap picks, and the raw plain version pinned as differing."""
+    the same rows) and the plain version does: the script is held to the
+    plain version given the rows the wrap picks, and to the plain version
+    on the raw rows."""
     q0, r, fld, src = tool.drain_gate_inputs()[0]
     q0[::3] = np.resize(np.array([(1 << 31) - 3, (1 << 31) - 2, (1 << 31) - 1], np.int32), q0[::3].shape)
     knob, rows = 64, src.shape[0] + 8
@@ -380,7 +380,7 @@ def test_drain_serial_wraps_q0_near_int_max(ref):
     got = pt.drain(knob, _t(wq0), _t(r), _t(fld), _t(wsrc), "serial").numpy()
     assert (got[rows:] == pt.INT_MIN).all()
     np.testing.assert_array_equal(got[:rows], want)
-    assert not np.array_equal(pt.drain(knob, *(_t(a) for a in (q0, r, fld, src)), "serial").numpy(), want)
+    np.testing.assert_array_equal(pt.drain(knob, *(_t(a) for a in (q0, r, fld, src)), "serial").numpy(), want)
 
 
 def test_l2_read_on_the_cpu_is_the_xor():

@@ -1,12 +1,20 @@
 """``tools/profile_stream.py`` on the CPU, at a small size: the four turns
 of each direction agree byte for byte, the stage spans nest inside their
-calls, and the timed functions are put back afterwards. Times on the CPU
-are host times of the plain versions and are not checked."""
+calls, a card's wait is the ticket's own (``HostCopy.wait``), and the
+timed functions are put back afterwards. Times on the CPU are host times of
+the plain versions and are not checked."""
 
+import io
+from collections import defaultdict
+
+import numpy as np
 import pytest
+import torch
 
+from snappy_tpu_torch.ops import host as ohost
 from snappy_tpu_torch.ops import route
-from snappy_tpu_torch.parallel import framed
+from snappy_tpu_torch.ops.encode_torch import BLOCK_MAX_OUT
+from snappy_tpu_torch.parallel import framed, streaming
 from snappy_tpu_torch.parallel import host as phost
 from snappy_tpu_torch.tools import profile_stream
 
@@ -38,6 +46,11 @@ def test_spans_nest(records, direction):
         assert sum(stages) <= spans[parent] <= r["seconds"]
         assert spans[f"assemble_{direction}"] <= r["seconds"]
         assert not any(k.endswith(".wait") for k in spans)  # no card, no wait
+        io_spans = spans.get("read", 0.0) + spans.get("write", 0.0)
+        if r["mode"] == "pipelined":
+            assert 0 < io_spans <= r["io_and_rest"]
+        else:
+            assert io_spans == 0
         assert r["io_and_rest"] == pytest.approx(r["seconds"] - spans[parent] - spans[f"assemble_{direction}"])
 
 
@@ -46,9 +59,53 @@ def test_timed_functions_restored(records):
     assert route.host_blocks.__module__ == route.__name__
     assert framed.verify_crcs.__module__ == framed.__name__
     assert phost.block_decoder.__name__ == "block_decoder"
+    assert ohost.HostCopy.wait.__qualname__ == "HostCopy.wait"
+
+
+@pytest.mark.parametrize("direction", ["compress", "uncompress"])
+def test_card_wait_is_the_tickets_own(direction, monkeypatch):
+    """With a card named, the wait timed is the ticket's HostCopy.wait,
+    under the assemble that waits; nothing synchronises the device."""
+
+    def no_sync(*_):
+        raise AssertionError("the profile synchronised the device")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+    raw = profile_stream.corpus_stream(BLOCK + 99)
+    frame = phost.compress_framed(raw, device="cpu")
+    spans = defaultdict(float)
+    with profile_stream.timed_stages("cuda", spans):
+        assert ohost.HostCopy.wait.__qualname__ != "HostCopy.wait"
+        if direction == "compress":
+            assert phost.assemble_compress(phost.dispatch_compress(raw, device="cpu")) == frame
+        else:
+            assert phost.assemble_uncompress(phost.dispatch_uncompress(frame, device="cpu")) == raw
+    assert ohost.HostCopy.wait.__qualname__ == "HostCopy.wait"
+    assert [k for k in spans if k.endswith(".wait")] == [f"assemble_{direction}.wait"]
+    assert 0 < spans[f"assemble_{direction}.wait"] <= spans[f"assemble_{direction}"]
+
+
+def test_fetch_choice_moves_whole_rows_or_the_streams():
+    raw = profile_stream.corpus_stream(3 * BLOCK)
+    got = profile_stream.fetch_choice(raw, 3, "cpu", turns=2)
+    frame = phost.compress_framed(raw, device="cpu")
+    streams = sum(framed.parse_index(frame).comp_lens.astype(np.int64))
+    assert got["rows"] == 3 and got["whole_rows_bytes"] == 3 * BLOCK_MAX_OUT
+    assert got["lengths_first_bytes"] == 3 * 4 + streams
+    assert got["whole_rows_ms"] > 0 and got["lengths_first_ms"] > 0
+
+
+def test_busy_share_without_a_card(tmp_path):
+    raw = profile_stream.corpus_stream(2 * BLOCK + 5)
+    comp = io.BytesIO()
+    streaming.compress_stream(io.BytesIO(raw), comp, device="cpu", blocks_per_frame=1)
+    got = profile_stream.busy_share(comp.getvalue(), "cpu", str(tmp_path))
+    assert len(list(tmp_path.iterdir())) == 1
+    assert got["seconds"] > 0 and got["kernels"] == got["copies"] == 0 and got["busy_share"] == 0
 
 
 def test_main_prints_a_line_a_run(capsys):
     assert profile_stream.main(["--bytes", str(BLOCK + 7), "--blocks-per-frame", "1", "--device", "cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 10 and lines[-1].startswith('{"profile_stream": [')
+    assert len(lines) == 12 and lines[-1].startswith('{"profile_stream": [')
+    assert lines[-3].startswith("encoded frame's results back") and lines[-2].startswith("uncompress_stream under")

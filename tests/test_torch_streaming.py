@@ -97,7 +97,7 @@ def html_x_4_in_pairs():
 def test_transient_frame_failure_recovers(monkeypatch, html_x_4_in_pairs):
     """A frame whose decode fails once is dispatched again and decodes."""
     raw, seq = html_x_4_in_pairs
-    real = phost.assemble_uncompress
+    real = phost.assemble_uncompress_array
     fail_once = {"armed": True}
 
     def flaky(ticket):
@@ -106,7 +106,7 @@ def test_transient_frame_failure_recovers(monkeypatch, html_x_4_in_pairs):
             raise RuntimeError("injected transient device fault")
         return real(ticket)
 
-    monkeypatch.setattr(phost, "assemble_uncompress", flaky)
+    monkeypatch.setattr(phost, "assemble_uncompress_array", flaky)
     out = io.BytesIO()
     n = streaming.uncompress_stream(io.BytesIO(seq), out, device="cpu")
     assert n == len(raw) and out.getvalue() == raw
@@ -125,7 +125,7 @@ def test_corrupt_frame_does_not_retry(monkeypatch, html_x_4_in_pairs):
         calls["n"] += 1
         raise CorruptInputError("injected corruption")
 
-    monkeypatch.setattr(phost, "assemble_uncompress", corrupt)
+    monkeypatch.setattr(phost, "assemble_uncompress_array", corrupt)
     with pytest.raises(CorruptInputError):
         streaming.uncompress_stream(io.BytesIO(html_x_4_in_pairs[1]), io.BytesIO(), device="cpu")
     assert calls["n"] == 1
@@ -134,7 +134,7 @@ def test_corrupt_frame_does_not_retry(monkeypatch, html_x_4_in_pairs):
 def test_reference_corrupt_error_is_retried(monkeypatch, html_x_4_in_pairs):
     """Only the port's own CorruptInputError is final: the reference's class
     is another exception to the port, so it is dispatched again."""
-    real = phost.assemble_uncompress
+    real = phost.assemble_uncompress_array
     calls = {"n": 0}
 
     def foreign(ticket):
@@ -143,7 +143,7 @@ def test_reference_corrupt_error_is_retried(monkeypatch, html_x_4_in_pairs):
             raise RefCorruptInputError("the other package's class")
         return real(ticket)
 
-    monkeypatch.setattr(phost, "assemble_uncompress", foreign)
+    monkeypatch.setattr(phost, "assemble_uncompress_array", foreign)
     out = io.BytesIO()
     streaming.uncompress_stream(io.BytesIO(html_x_4_in_pairs[1]), out, device="cpu")
     assert out.getvalue() == html_x_4_in_pairs[0]
@@ -157,7 +157,7 @@ def test_persistent_frame_failure_raises(monkeypatch, html_x_4_in_pairs):
         calls["n"] += 1
         raise RuntimeError("injected permanent fault")
 
-    monkeypatch.setattr(phost, "assemble_uncompress", broken)
+    monkeypatch.setattr(phost, "assemble_uncompress_array", broken)
     with pytest.raises(RuntimeError, match="permanent"):
         streaming.uncompress_stream(io.BytesIO(html_x_4_in_pairs[1]), io.BytesIO(), device="cpu", max_retries=2)
     assert calls["n"] == 3
