@@ -91,7 +91,10 @@ non-zero:
               per frame with a block left on the card, the decoder once per
               frame. Gates: the round trip is bit-exact, the frame count, the
               first, a middle and the last (short) frame equal to
-              compress_framed of their chunk, no retry. The overlap gate:
+              compress_framed of their chunk, no retry; the decode once more
+              into a sink that keeps every part it is given (a memoryview of
+              the pinned memory a frame came back in), the parts joined at
+              the end equal to the input. The overlap gate:
               frames 0 and 1 dispatched with a SLEEP_MS torch.cuda._sleep
               queued between them; assemble_uncompress and assemble_compress
               of frame 0 must each return while an event recorded after the
@@ -299,6 +302,17 @@ def raises(exc, fn) -> bool:
     return False
 
 
+class KeepParts:
+    """A stream sink that keeps every part ``write`` is given."""
+
+    def __init__(self):
+        self.parts = []
+
+    def write(self, b) -> int:
+        self.parts.append(b)
+        return len(b)
+
+
 def stream_phase(card: str, name: str, raw_main: bytes) -> dict[str, int]:
     """Phase 13: the streaming pipeline at the reference's large config, on
     the default device, then resume on files. Returns the stream path's
@@ -339,6 +353,15 @@ def stream_phase(card: str, name: str, raw_main: bytes) -> dict[str, int]:
     stats = dict(streaming.last_stats)
     check(dst.getvalue() == raw, "the stream round trip is not bit-exact")
     del dst
+    # Once more into a sink that keeps every part: each is a view of the
+    # pinned memory its frame came back in, which no later frame may reuse
+    # while the sink holds the view.
+    kept = KeepParts()
+    streaming.uncompress_stream(io.BytesIO(comp), kept)
+    check(len(kept.parts) == n_frames and all(isinstance(p, memoryview) for p in kept.parts),
+          f"the kept sink got {len(kept.parts)} parts of types {sorted({type(p).__name__ for p in kept.parts})}")
+    check(b"".join(kept.parts) == raw, "a part the sink kept changed before the stream ended")
+    del kept
     frames = list(streaming.iter_frames(io.BytesIO(comp)))
     check(len(frames) == n_frames and stats["frames"] == n_frames,
           f"{len(frames)} frames written, {stats['frames']} decoded, {n_frames} expected")
@@ -351,7 +374,8 @@ def stream_phase(card: str, name: str, raw_main: bytes) -> dict[str, int]:
     for i in (0, n_frames // 2, n_frames - 1):
         check(frames[i] == snappy_tpu_torch.compress_framed(chunks[i]), f"frame {i} differs from compress_framed")
     print(f"[13 stream] {len(raw)} bytes of the corpus mix, {bpf} blocks a frame: {n_frames} frames "
-          f"(the last {len(chunks[-1])} bytes), {len(comp)} bytes; round trip bit-exact; frames 0, "
+          f"(the last {len(chunks[-1])} bytes), {len(comp)} bytes; round trip bit-exact, and the "
+          f"{n_frames} memoryviews a sink kept joined equal to the input at the end; frames 0, "
           f"{n_frames // 2} and {n_frames - 1} equal compress_framed of their chunk; retries 0; decoder "
           f"launches {dec_launches} (one a frame), encoder launches {enc_launches} (the {on_card} frames "
           f"with a block on the card)", flush=True)

@@ -14,19 +14,20 @@ The write paths take ``encoder="array"`` for the JAX package's off-TPU
 parse, ``ops/encode_array.py``, in torch on either device, in place of the
 encode kernel (``encoder="kernel"``, the default).
 
-Public API:
-  - compress(data, backend=, device=, encoder=) -> bytes  raw snappy stream
-                                                  (backends "native",
-                                                  "torch", "cpu")
-  - uncompress(data, backend=, device=) -> bytes  decode a raw stream
-  - compress_framed(data, config=, device=, mesh=, encoder=)  framed stream
-  - uncompress_framed(frame, device=, mesh=)      decode a framed stream
+Public API, each function taking the JAX package's arguments in its order
+and the port's own (``device``, default "cuda"; ``encoder``) by keyword only:
+  - compress(data, backend=None, *, device=, encoder=) -> bytes  raw snappy
+                                                  stream (backends
+                                                  "native", "torch", "cpu")
+  - uncompress(data, backend=None, *, device=) -> bytes  decode a raw stream
+  - compress_framed(data, config, mesh, *, device=, encoder=)  framed stream
+  - uncompress_framed(frame, mesh, *, device=)    decode a framed stream
   - mesh_1d(devices=None) -> Mesh                 the devices a framed call
                                                   shards its blocks over
                                                   (mesh=; every CUDA device
                                                   by default)
   - max_compressed_length(n) -> int
-  - uncompressed_length(data) -> (n, header_len)
+  - uncompressed_length(comp) -> (n, header_len)
 
 This package imports torch and never jax.
 """

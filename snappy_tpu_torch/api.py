@@ -27,7 +27,7 @@ def _host_codec(backend: str | None):
     return oracle
 
 
-def compress(data, backend: str | None = None, device="cuda", encoder: str = "kernel") -> bytes:
+def compress(data, backend: str | None = None, *, device="cuda", encoder: str = "kernel") -> bytes:
     """Compress ``data`` into a raw Snappy stream. ``device`` and
     ``encoder`` (the block encoder: "kernel" or "array", see
     ``ops/select.py``) apply to the "torch" backend."""
@@ -38,7 +38,7 @@ def compress(data, backend: str | None = None, device="cuda", encoder: str = "ke
     return _host_codec(backend).compress(data)
 
 
-def uncompress(data, backend: str | None = None, device="cuda") -> bytes:
+def uncompress(data, backend: str | None = None, *, device="cuda") -> bytes:
     """Decode a raw Snappy stream produced by any conformant encoder.
     ``device`` applies to the "torch" backend."""
     if backend == "torch":
@@ -48,7 +48,7 @@ def uncompress(data, backend: str | None = None, device="cuda") -> bytes:
     return _host_codec(backend).uncompress(data)
 
 
-def uncompressed_length(data) -> tuple[int, int]:
+def uncompressed_length(comp) -> tuple[int, int]:
     """(uncompressed length, header length) from a raw stream's varint
     header, parsed without the native library, as the reference does."""
-    return oracle.uncompressed_length(data)
+    return oracle.uncompressed_length(comp)

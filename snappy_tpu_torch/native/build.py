@@ -1,10 +1,10 @@
 """Build the native C++ codec shared library.
 
-The source is the JAX package's ``snappy_tpu/native/snappy_native.cpp``,
-compiled from its place in the repository (never copied) into this
-package's build directory, with the port's own ``crc32_rows.cpp`` (the
-framed container's crcs, many blocks a call). Built on first use, or by
-hand:
+The source is the port's own ``snappy_native.cpp``, a byte-for-byte copy
+of the JAX package's codec, compiled with ``crc32_rows.cpp`` (the framed
+container's crcs, many blocks a call) into this package's build directory,
+so the package builds with nothing of the JAX package beside it. Built on
+first use, or by hand:
 
     python -m snappy_tpu_torch.native.build
 
@@ -20,10 +20,10 @@ import sys
 import tempfile
 from pathlib import Path
 
-_PKG = Path(__file__).resolve().parents[1]
-BUILD_DIR = _PKG / "_build"
-SOURCE = _PKG.parent / "snappy_tpu" / "native" / "snappy_native.cpp"
-CRC_SOURCE = Path(__file__).resolve().parent / "crc32_rows.cpp"
+_HERE = Path(__file__).resolve().parent
+BUILD_DIR = _HERE.parent / "_build"
+SOURCE = _HERE / "snappy_native.cpp"
+CRC_SOURCE = _HERE / "crc32_rows.cpp"
 
 # No -march=native: the build directory may travel with a copy of the tree
 # to another host, and the library is keyed by source and flags only.
@@ -63,8 +63,6 @@ def build_shared(compiler: list[str], sources: list[Path], stem: str) -> Path:
 
 def build() -> Path:
     """Path of the native codec library, compiling it if needed."""
-    if not SOURCE.exists():
-        raise RuntimeError(f"native codec source not found at {SOURCE}")
     return build_shared(["g++", *CXXFLAGS], [SOURCE, CRC_SOURCE], "snappy_native")
 
 

@@ -211,7 +211,7 @@ class HostCopy:
         return [h.numpy() for h in self._host]
 
 
-def uncompress(data, device="cuda") -> bytes:
+def uncompress(data, *, device="cuda") -> bytes:
     """Decode a raw Snappy stream on ``device``. Raises CorruptInputError
     on a corrupt stream."""
     comp = as_u8(data)
@@ -254,7 +254,7 @@ def _uncompress_blocked(body: np.ndarray, starts: np.ndarray, oplens: np.ndarray
     return out[keep].tobytes()
 
 
-def compress(data, device="cuda", encoder: str = "kernel") -> bytes:
+def compress(data, *, device="cuda", encoder: str = "kernel") -> bytes:
     """Compress into a raw Snappy stream, encoding the compressible blocks
     with the block encoder ``encoder`` (``select.ENCODERS``) on ``device``."""
     from . import route  # route builds on stage and HostCopy above

@@ -107,6 +107,7 @@ def compress_blocks(
     mesh: Mesh,
     gather: bool = False,
     min_profit: int | None = None,
+    *,
     encoder: str = "kernel",
 ):
     """Encode a uint8[NB, block_size + ENC_PAD] batch sharded over ``mesh``

@@ -177,7 +177,7 @@ def frame_to_raw(frame: bytes) -> bytes:
     return b"".join(parts)
 
 
-def raw_to_frame(raw: bytes, config: FrameConfig = DEFAULT_FRAME_CONFIG, device="cuda") -> bytes:
+def raw_to_frame(raw: bytes, config: FrameConfig = DEFAULT_FRAME_CONFIG, *, device="cuda") -> bytes:
     """Reframe a raw stream into a frame.
 
     Where the native segmenter cuts the stream into segments of exactly
@@ -205,4 +205,4 @@ def raw_to_frame(raw: bytes, config: FrameConfig = DEFAULT_FRAME_CONFIG, device=
     from ..api import uncompress
     from .host import compress_framed  # host builds on this module
 
-    return compress_framed(uncompress(raw), config, device)
+    return compress_framed(uncompress(raw), config, device=device)

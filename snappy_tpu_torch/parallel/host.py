@@ -38,7 +38,7 @@ from . import distributed, framed
 MAX_TAG_BYTES_PER_BYTE = 6
 
 
-def dispatch_compress(data, config: FrameConfig = DEFAULT_FRAME_CONFIG, device="cuda", mesh=None,
+def dispatch_compress(data, config: FrameConfig = DEFAULT_FRAME_CONFIG, mesh=None, *, device="cuda",
                       encoder: str = "kernel"):
     """Launch the encode of every block of ``data`` with the block encoder
     ``encoder`` (``select.ENCODERS``) on ``device`` (or over ``mesh``);
@@ -88,11 +88,11 @@ def assemble_compress(ticket) -> bytes:
         return framed.build_frame_header([len(s) for s in streams], crcs, len(inp), config) + b"".join(streams)
 
 
-def compress_framed(data, config: FrameConfig = DEFAULT_FRAME_CONFIG, device="cuda", mesh=None,
+def compress_framed(data, config: FrameConfig = DEFAULT_FRAME_CONFIG, mesh=None, *, device="cuda",
                     encoder: str = "kernel") -> bytes:
     """Compress into the framed container, block-parallel on ``device`` or
     sharded over ``mesh``, with the block encoder ``encoder``."""
-    return assemble_compress(dispatch_compress(data, config, device, mesh, encoder))
+    return assemble_compress(dispatch_compress(data, config, mesh, device=device, encoder=encoder))
 
 
 def block_batch(span: np.ndarray, clens: np.ndarray, ulens: np.ndarray, block_size: int, rows: int, device="cpu"):
@@ -122,7 +122,7 @@ def frame_batch(frame: bytes, idx: framed.FrameIndex, rows: int | None = None, d
     return (*batch, int(idx.block_size))
 
 
-def dispatch_uncompress(frame: bytes, device="cuda", mesh=None):
+def dispatch_uncompress(frame: bytes, mesh=None, *, device="cuda"):
     """Launch the decode of every block of ``frame`` on ``device`` (or over
     ``mesh``) and queue the copy of its results to the host. Returns a
     ticket for ``assemble_uncompress``."""
@@ -173,7 +173,7 @@ def assemble_uncompress(ticket) -> bytes:
     return assemble_uncompress_array(ticket).tobytes()
 
 
-def uncompress_framed(frame: bytes, device="cuda", mesh=None) -> bytes:
+def uncompress_framed(frame: bytes, mesh=None, *, device="cuda") -> bytes:
     """Decode a framed stream block-parallel on ``device`` or sharded over
     ``mesh``."""
-    return assemble_uncompress(dispatch_uncompress(frame, device, mesh))
+    return assemble_uncompress(dispatch_uncompress(frame, mesh, device=device))

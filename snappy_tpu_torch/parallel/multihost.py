@@ -75,7 +75,7 @@ def local_device() -> torch.device:
     return torch.device("cuda", dist.get_rank() % n)
 
 
-def global_mesh(local_devices=None, axis: str = distributed.AXIS) -> distributed.Mesh:
+def global_mesh(axis: str = distributed.AXIS, *, local_devices=None) -> distributed.Mesh:
     """1-D mesh over every process's devices, in rank order. Each process
     contributes ``local_devices`` (by default :func:`local_device`); every
     process must contribute as many."""
@@ -137,6 +137,7 @@ def compress_framed(
     out_path: str,
     mesh: distributed.Mesh | None = None,
     config: FrameConfig = DEFAULT_FRAME_CONFIG,
+    *,
     encoder: str = "kernel",
 ) -> int:
     """Multi-host framed compress: every process encodes its disjoint block

@@ -100,9 +100,10 @@ def compress_stream(
     src: BinaryIO,
     dst: BinaryIO,
     config: FrameConfig = DEFAULT_FRAME_CONFIG,
-    device="cuda",
-    blocks_per_frame: int = DEFAULT_BLOCKS_PER_FRAME,
     mesh=None,
+    blocks_per_frame: int = DEFAULT_BLOCKS_PER_FRAME,
+    *,
+    device="cuda",
     encoder: str = "kernel",
 ) -> int:
     """Compress ``src`` into a sequence of frames on ``dst``, coded on
@@ -117,8 +118,7 @@ def compress_stream(
         if not eof:
             chunk = src.read(chunk_bytes)
             if chunk:
-                pending.append(_host.dispatch_compress(chunk, config=config, device=device, mesh=mesh,
-                                                       encoder=encoder))
+                pending.append(_host.dispatch_compress(chunk, config, mesh, device=device, encoder=encoder))
             else:
                 eof = True
         while pending and (len(pending) > PIPELINE_DEPTH or eof):
@@ -135,9 +135,11 @@ def iter_frames(src: BinaryIO) -> Iterator[bytes]:
         yield got[0]
 
 
-def uncompress_stream(src: BinaryIO, dst: BinaryIO, device="cuda", max_retries: int = 1, mesh=None) -> int:
+def uncompress_stream(src: BinaryIO, dst: BinaryIO, mesh=None, max_retries: int = 1, *, device="cuda") -> int:
     """Decode a frame-sequence stream on ``device`` (or over ``mesh``);
-    returns the uncompressed bytes written.
+    returns the uncompressed bytes written. ``dst.write`` gets each frame's
+    bytes as a ``memoryview`` of the host memory they came back in, which
+    stays valid for as long as the sink keeps it.
 
     A frame whose decode fails is dispatched again up to ``max_retries``
     times from its frame bytes before the error propagates; a
@@ -150,11 +152,11 @@ def uncompress_stream(src: BinaryIO, dst: BinaryIO, device="cuda", max_retries: 
     retry_exc: str | None = None
     pending: deque = deque()  # (frame bytes, ticket)
 
-    def commit(frame_bytes, ticket) -> np.ndarray:
+    def commit(frame_bytes, ticket) -> memoryview:
         nonlocal retries, retry_exc
         for attempt in range(max_retries + 1):
             try:
-                return _host.assemble_uncompress_array(ticket)
+                return memoryview(_host.assemble_uncompress_array(ticket))
             except CorruptInputError:
                 # Corrupt data decodes the same way every time: a second
                 # dispatch cannot succeed.
@@ -164,7 +166,7 @@ def uncompress_stream(src: BinaryIO, dst: BinaryIO, device="cuda", max_retries: 
                     raise
                 retries += 1
                 retry_exc = type(e).__name__
-                ticket = _host.dispatch_uncompress(frame_bytes, device=device, mesh=mesh)
+                ticket = _host.dispatch_uncompress(frame_bytes, mesh, device=device)
         raise AssertionError("unreachable")
 
     it = iter_frames(src)
@@ -175,7 +177,7 @@ def uncompress_stream(src: BinaryIO, dst: BinaryIO, device="cuda", max_retries: 
             if frame is None:
                 eof = True
             else:
-                pending.append((frame, _host.dispatch_uncompress(frame, device=device, mesh=mesh)))
+                pending.append((frame, _host.dispatch_uncompress(frame, mesh, device=device)))
         while pending and (len(pending) > PIPELINE_DEPTH or eof):
             out = commit(*pending.popleft())
             dst.write(out)
@@ -240,9 +242,10 @@ def resume_compress_file(
     in_path: str,
     out_path: str,
     config: FrameConfig = DEFAULT_FRAME_CONFIG,
-    device="cuda",
-    blocks_per_frame: int = DEFAULT_BLOCKS_PER_FRAME,
     mesh=None,
+    blocks_per_frame: int = DEFAULT_BLOCKS_PER_FRAME,
+    *,
+    device="cuda",
     encoder: str = "kernel",
 ) -> int:
     """Compress ``in_path`` to a frame sequence at ``out_path`` on
@@ -269,21 +272,20 @@ def resume_compress_file(
         _truncate(out_path, durable)
         with open(out_path, "r+b") as dst:
             dst.seek(durable)
-            written = compress_stream(
-                src, dst, config=config, device=device, blocks_per_frame=blocks_per_frame, mesh=mesh,
-                encoder=encoder,
-            )
+            written = compress_stream(src, dst, config, mesh, blocks_per_frame, device=device, encoder=encoder)
     return durable + written
 
 
-def resume_uncompress_file(in_path: str, out_path: str, device="cuda", mesh=None) -> int:
+def resume_uncompress_file(in_path: str, out_path: str, mesh=None, *, device="cuda", **kw) -> int:
     """Decode a frame-sequence file on ``device`` (or over ``mesh``),
     resuming after a kill.
 
     The output file is its own progress marker: frames decode in order and
     append, so a kill leaves a prefix, possibly torn; resume cuts it to the
     last whole frame and decodes the frames after it. Returns the
-    uncompressed size."""
+    uncompressed size. ``kw`` (``max_retries``, say) is taken and not used,
+    as in the reference: resume does not retry a frame, it is itself the
+    retry of a run that died."""
     try:
         out_size = os.path.getsize(out_path)
     except FileNotFoundError:
@@ -312,9 +314,9 @@ def resume_uncompress_file(in_path: str, out_path: str, device="cuda", mesh=None
                 if frame is None:
                     eof = True
                 else:
-                    pending.append(_host.dispatch_uncompress(frame, device=device, mesh=mesh))
+                    pending.append(_host.dispatch_uncompress(frame, mesh, device=device))
             while pending and (len(pending) > PIPELINE_DEPTH or eof):
-                out = _host.assemble_uncompress_array(pending.popleft())
+                out = memoryview(_host.assemble_uncompress_array(pending.popleft()))
                 dst.write(out)
                 total += len(out)
     return total

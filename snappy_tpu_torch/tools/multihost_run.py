@@ -62,7 +62,7 @@ def main(argv=None) -> int:
             # them. Each takes at most its share (and no more than it has).
             torch.set_num_threads(min(torch.get_num_threads(), max(1, (os.cpu_count() or 1) // args.nprocs)))
         dev = multihost.local_device() if args.device == "cuda" else torch.device("cpu")
-        mesh = multihost.global_mesh([dev] * args.local_shards)
+        mesh = multihost.global_mesh(local_devices=[dev] * args.local_shards)
         rec = {"rank": args.rank, "world": dist.get_world_size(), "mesh": mesh.size, "device": str(dev)}
         if dev.type == "cuda":
             t0 = time.perf_counter()

@@ -224,3 +224,24 @@ def test_no_silent_cpu_fallback():
         snappy_tpu_torch.compress_framed(INPUTS["html"])
     with pytest.raises((RuntimeError, AssertionError)):
         snappy_tpu_torch.compress(INPUTS["html"], backend="torch")
+
+
+ONE_BYTE_BLOCKS = read_testdata("html")[:48]
+
+
+def test_reference_refuses_one_byte_blocks():
+    """A reference behaviour, not a port fault: on a host without a TPU
+    snappy_tpu's encoder (``encode_xla``) cannot take a one-byte block."""
+    with pytest.raises(ValueError):
+        snappy_tpu.compress_framed(ONE_BYTE_BLOCKS, RefFrameConfig(block_size=1))
+
+
+@pytest.mark.parametrize("encoder", ["kernel", "array"])
+def test_one_byte_blocks_frame_in_the_port(encoder):
+    """The port frames one-byte blocks with either encoder, and the
+    reference decodes the frame."""
+    cfg = snappy_tpu_torch.FrameConfig(block_size=1)
+    frame = snappy_tpu_torch.compress_framed(ONE_BYTE_BLOCKS, cfg, device="cpu", encoder=encoder)
+    assert framed.parse_index(frame).n_blocks == len(ONE_BYTE_BLOCKS)
+    assert snappy_tpu.uncompress_framed(frame) == ONE_BYTE_BLOCKS
+    assert snappy_tpu_torch.uncompress_framed(frame, device="cpu") == ONE_BYTE_BLOCKS

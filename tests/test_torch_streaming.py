@@ -13,6 +13,7 @@ decodes need no patch. The port runs the plain versions of its kernels.
 Tolerance: exact, since the outputs are bytes.
 """
 
+import hashlib
 import io
 
 import numpy as np
@@ -418,3 +419,154 @@ def test_reference_frame_sequence_through_the_port_framed_reader(sequences):
     out = io.BytesIO()
     assert streaming.uncompress_stream(io.BytesIO(one), out, device="cpu") == 1000
     assert out.getvalue() == raw[:1000]
+
+
+# --- what a sink is given -------------------------------------------------
+# The reference hands ``dst.write`` one ``bytes`` a frame; the port hands it
+# a memoryview of the host memory the frame came back in. Whatever a sink
+# does with bytes must work with it, and a part it keeps must stay as it was.
+
+SINK_RAW = read_testdata("html") * 3  # 307,200 bytes: 10 frames of 8 blocks of 4 KiB
+SINK_CONFIG = RefFrameConfig(block_size=4096)
+SINK_BLOCKS_PER_FRAME = 8
+
+
+class ConcatSink:
+    """``self.buf += d`` on a ``bytes`` (or, with ``bytearray()``, a
+    ``bytearray``) buffer."""
+
+    def __init__(self, buf):
+        self.buf = buf
+
+    def write(self, d):
+        self.buf += d
+        return len(d)
+
+    def value(self) -> bytes:
+        return bytes(self.buf)
+
+
+class KeepSink:
+    """Keeps every part it is given, and a copy of it taken at once."""
+
+    def __init__(self):
+        self.parts, self.copies = [], []
+
+    def write(self, d):
+        self.parts.append(d)
+        self.copies.append(bytes(d))
+        return len(d)
+
+    def value(self) -> bytes:
+        return b"".join(self.parts)
+
+
+class HashSink:
+    def __init__(self):
+        self.h = hashlib.sha256()
+
+    def write(self, d):
+        self.h.update(d)
+        return len(d)
+
+    def value(self) -> bytes:
+        return self.h.digest()
+
+
+class BytesIOSink(io.BytesIO):
+    def value(self) -> bytes:
+        return self.getvalue()
+
+
+class FileSink:
+    def __init__(self, path):
+        self.path = path
+        self.f = open(path, "wb")
+
+    def write(self, d):
+        return self.f.write(d)
+
+    def value(self) -> bytes:
+        self.f.close()
+        return self.path.read_bytes()
+
+
+SINKS = {
+    "bytes": lambda path: ConcatSink(b""),
+    "bytearray": lambda path: ConcatSink(bytearray()),
+    "list": lambda path: KeepSink(),
+    "sha256": lambda path: HashSink(),
+    "BytesIO": lambda path: BytesIOSink(),
+    "file": lambda path: FileSink(path),
+}
+
+
+@pytest.fixture(scope="module")
+def sink_sequence():
+    return compressed(SINK_RAW, config=config_from_reference(SINK_CONFIG),
+                      blocks_per_frame=SINK_BLOCKS_PER_FRAME).getvalue()
+
+
+@pytest.mark.parametrize("sink", list(SINKS))
+def test_sinks_get_what_the_reference_gives(sink_sequence, tmp_path, sink):
+    """The same frame sequence decoded by each package into the same kind
+    of sink leaves the same bytes there; a list sink's parts equal the
+    reference's, frame by frame, and none has changed by the end."""
+    ref_sink, port_sink = SINKS[sink](tmp_path / "ref.out"), SINKS[sink](tmp_path / "port.out")
+    assert ref_streaming.uncompress_stream(io.BytesIO(sink_sequence), ref_sink) == len(SINK_RAW)
+    assert streaming.uncompress_stream(io.BytesIO(sink_sequence), port_sink, device="cpu") == len(SINK_RAW)
+    want = hashlib.sha256(SINK_RAW).digest() if sink == "sha256" else SINK_RAW
+    assert port_sink.value() == ref_sink.value() == want
+    if sink == "list":
+        assert len(port_sink.parts) == len(ref_sink.parts) == 10
+        for ours, theirs, copy in zip(port_sink.parts, ref_sink.parts, port_sink.copies):
+            assert ours == theirs and len(ours) == len(theirs)
+            assert ours == copy
+
+
+class KeptFile:
+    """A file whose ``write`` also keeps every part it is given."""
+
+    def __init__(self, f, parts: list):
+        self._f, self.parts = f, parts
+
+    def write(self, d):
+        self.parts.append(d)
+        return self._f.write(d)
+
+    def __getattr__(self, name):
+        return getattr(self._f, name)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return self._f.__exit__(*exc)
+
+
+def test_resume_writes_what_the_reference_writes(sink_sequence, tmp_path, monkeypatch):
+    """``resume_uncompress_file`` after a torn output writes the same parts
+    as the reference's: each one adds to ``bytes`` as the reference's do,
+    and the file ends equal to the input."""
+    comp = tmp_path / "c.snpf"
+    comp.write_bytes(sink_sequence)
+    cut = 3 * SINK_BLOCKS_PER_FRAME * 4096 + 1000  # inside the fourth frame
+    parts = {}
+    for name, pkg, kw in (("ref", ref_streaming, {}), ("port", streaming, {"device": "cpu"})):
+        out = tmp_path / f"{name}.out"
+        out.write_bytes(SINK_RAW[:cut])
+        kept = parts[name] = []
+
+        def keeping_open(path, mode="r", *a, _out=str(out), _kept=kept, **k):
+            f = open(path, mode, *a, **k)
+            return KeptFile(f, _kept) if str(path) == _out and "+" in mode else f
+
+        monkeypatch.setattr(pkg, "open", keeping_open, raising=False)
+        assert pkg.resume_uncompress_file(str(comp), str(out), **kw) == len(SINK_RAW)
+        monkeypatch.undo()
+        assert out.read_bytes() == SINK_RAW
+    done = b""
+    for ours, theirs in zip(parts["port"], parts["ref"], strict=True):
+        done += ours
+        assert ours == theirs
+    assert done == SINK_RAW[3 * SINK_BLOCKS_PER_FRAME * 4096 :]
