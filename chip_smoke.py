@@ -22,7 +22,7 @@ non-zero:
               around the ring's size, a 128 KiB segment, text across flushes)
   4. slice    a 64 MiB corpus-mix frame (1024 blocks, crc on) through
               uncompress_framed(frame, device="cuda"): the main path; the
-              kernel's launch count is reset just before and read just after;
+              kernel's launch counter is read just before and just after;
               the kernel's shared memory a block and blocks an SM
   5. raw      alice29.snappy, a 64 MiB native raw stream and an unsegmentable
               stream through uncompress(backend="torch", device="cuda");
@@ -40,8 +40,8 @@ non-zero:
               refuses
   8. write slice  the same 64 MiB corpus mix through
               compress_framed(raw, device="cuda"): the write path's main
-              path, with the encoder's launch count reset just before and
-              read just after; the frame must decode through the port's CUDA
+              path, with the encoder's launch counter read just before and
+              just after; the frame must decode through the port's CUDA
               decoder and the native one, and equal the frame built from the
               plain version's rows and the routed blocks' native streams
   9. density and raw  every corpus file of the density gate encodes no
@@ -76,7 +76,7 @@ non-zero:
               q0 + 1 and q0 + 2 wrap in int32 as the reference's do), or at
               a small knob for P1 and P5, whose plain
               versions step through every iteration; then, with the launch
-              counts reset just before and read just after,
+              counters read just before and just after,
               tools/exp_vector_walk.run times each at the script's two
               knobs: ns and cycles a step by the slope, one line a variant
               and a {"probes": [...]} line; last the one-block L2 read
@@ -86,8 +86,8 @@ non-zero:
  13. stream   the reference's large config (bench.py's stream_large stage):
               676,000,000 bytes of the corpus mix through compress_stream and
               uncompress_stream on io.BytesIO, 128 blocks a frame, on the
-              default device, after one warm-up frame; the launch counts are
-              reset just before each and read just after: the encoder once
+              default device, after one warm-up frame; the launch counters are
+              read just before each and just after: the encoder once
               per frame with a block left on the card, the decoder once per
               frame. Gates: the round trip is bit-exact, the frame count, the
               first, a middle and the last (short) frame equal to
@@ -114,8 +114,8 @@ non-zero:
               --device
  14. mesh     the mesh and multi-host drivers on the 64 MiB corpus mix:
               compress_framed and uncompress_framed with mesh= of 1, 3 and 4
-              shards, all on cuda:0, the launch counts reset just before each
-              call and read just after (K2 and K1 once a shard, neither in the
+              shards, all on cuda:0, the launch counters read just before each
+              call and just after (K2 and K1 once a shard, neither in the
               other's call); the frames identical for every shard count, no
               block routed, the output bit-exact; K2 and K1 against their
               plain versions on the rows only the mesh path gives them (the
@@ -318,10 +318,11 @@ def stream_phase(card: str, name: str, raw_main: bytes) -> dict[str, int]:
     the default device, then resume on files. Returns the stream path's
     launches of the decoder and the encoder."""
     import snappy_tpu_torch
-    from snappy_tpu_torch.ops import cuda_decode, cuda_encode, route
+    from snappy_tpu_torch.ops import route
     from snappy_tpu_torch.ops.host import blockify
     from snappy_tpu_torch.parallel import streaming
     from snappy_tpu_torch.tools import profile_stream
+    from snappy_tpu_torch.utils import profiling
     from snappy_tpu_torch.utils.metrics import Metrics
 
     bpf = STREAM_BLOCKS_PER_FRAME
@@ -341,15 +342,17 @@ def stream_phase(card: str, name: str, raw_main: bytes) -> dict[str, int]:
     warm.seek(0)
     streaming.uncompress_stream(warm, io.BytesIO())
 
-    cuda_encode.launches = cuda_decode.launches = 0
+    before = profiling.counters()
     dst = io.BytesIO()
     streaming.compress_stream(io.BytesIO(raw), dst, blocks_per_frame=bpf)
-    enc_launches, dec_during_enc = cuda_encode.launches, cuda_decode.launches
+    moved = profiling.since(before)
+    enc_launches, dec_during_enc = moved["k2.launches"], moved["k1.launches"]
     comp = dst.getvalue()
-    cuda_decode.launches = cuda_encode.launches = 0
+    before = profiling.counters()
     dst = io.BytesIO()
     streaming.uncompress_stream(io.BytesIO(comp), dst)
-    dec_launches, enc_during_dec = cuda_decode.launches, cuda_encode.launches
+    moved = profiling.since(before)
+    dec_launches, enc_during_dec = moved["k1.launches"], moved["k2.launches"]
     stats = dict(streaming.last_stats)
     check(dst.getvalue() == raw, "the stream round trip is not bit-exact")
     del dst
@@ -529,6 +532,7 @@ def mesh_phase(card: str, raw_main: bytes, routed_frame: bytes, dev, rank_device
     from snappy_tpu_torch.parallel import distributed, framed
     from snappy_tpu_torch.parallel import host as fhost
     from snappy_tpu_torch.tools import dryrun_multichip
+    from snappy_tpu_torch.utils import profiling
     from snappy_tpu_torch.utils.metrics import time_device_fn
 
     n_blocks = -(-len(raw_main) // BLOCK)
@@ -538,16 +542,18 @@ def mesh_phase(card: str, raw_main: bytes, routed_frame: bytes, dev, rank_device
         mesh = distributed.mesh_1d([dev] * shards)
         c_calls, u_calls = [], []
         for rep in range(3):
-            cuda_encode.launches = cuda_decode.launches = 0
+            before = profiling.counters()
             t0 = time.perf_counter()
             frame = snappy_tpu_torch.compress_framed(raw_main, mesh=mesh)
             c_calls.append(time.perf_counter() - t0)
-            enc, dec_in_enc = cuda_encode.launches, cuda_decode.launches
-            cuda_encode.launches = cuda_decode.launches = 0
+            moved = profiling.since(before)
+            enc, dec_in_enc = moved["k2.launches"], moved["k1.launches"]
+            before = profiling.counters()
             t0 = time.perf_counter()
             out = snappy_tpu_torch.uncompress_framed(frame, mesh=mesh)
             u_calls.append(time.perf_counter() - t0)
-            dec, enc_in_dec = cuda_decode.launches, cuda_encode.launches
+            moved = profiling.since(before)
+            dec, enc_in_dec = moved["k1.launches"], moved["k2.launches"]
             check(enc == shards and dec_in_enc == 0, f"{shards}-shard compress_framed: encoder launches {enc}, "
                   f"decoder {dec_in_enc}")
             check(dec == shards and enc_in_dec == 0, f"{shards}-shard uncompress_framed: decoder launches {dec}, "
@@ -680,6 +686,7 @@ def array_phase(card: str, raw_main: bytes, kernel_frame: bytes, dev) -> dict:
     from snappy_tpu_torch.ops.host import blockify, to_device
     from snappy_tpu_torch.parallel import distributed, framed
     from snappy_tpu_torch.tools import profile_array
+    from snappy_tpu_torch.utils import profiling
     from snappy_tpu_torch.utils.metrics import time_device_fn
 
     t_phase = time.perf_counter()
@@ -698,12 +705,13 @@ def array_phase(card: str, raw_main: bytes, kernel_frame: bytes, dev) -> dict:
         return encode(blocks, lens, min_profit)
 
     encode_array.encode_blocks = recorded
+    before = profiling.counters()
     try:
-        cuda_encode.launches = 0
         frame = snappy_tpu_torch.compress_framed(raw_main, device=dev, encoder="array")
     finally:
         encode_array.encode_blocks = encode
-    check(cuda_encode.launches == 0, f"encoder='array' launched K2 {cuda_encode.launches} times")
+    k2 = profiling.since(before)["k2.launches"]
+    check(k2 == 0, f"encoder='array' launched K2 {k2} times")
     check(calls == [(len(dev_idx), dev.type)], f"the array encoder's calls {calls}, expected one of "
           f"{len(dev_idx)} rows on {dev.type}")
     check(snappy_tpu_torch.uncompress_framed(frame, device=dev) == raw_main,
@@ -816,7 +824,7 @@ def bench_phase(card: str, raw_main: bytes, frame: bytes, dev) -> dict[str, int]
     from snappy_tpu_torch.tools import bench, run_corpus
     from snappy_tpu_torch.utils import profile_to
 
-    modules = bench.KERNEL_MODULES
+    modules = bench.KERNEL_COUNTERS
     env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
     t0 = time.perf_counter()
     run = subprocess.run([sys.executable, "-m", "snappy_tpu_torch.tools.bench"], cwd=REPO, env=env,
@@ -857,7 +865,7 @@ def bench_phase(card: str, raw_main: bytes, frame: bytes, dev) -> dict[str, int]
           f"{recs['decode_own_autotuned']['picked']}", flush=True)
     print(json.dumps({"bench": {"run": report["run"], "stages": report["stages"], "headline": headline}}), flush=True)
 
-    before = {k: m.launches for k, m in modules.items()}
+    before = bench.launches()
     t0 = time.perf_counter()
     rows = run_corpus.run(dev, iters=3)
     print(run_corpus.table(rows), flush=True)
@@ -879,7 +887,8 @@ def bench_phase(card: str, raw_main: bytes, frame: bytes, dev) -> dict[str, int]
         print(f"[16 bench] profile_to around one uncompress_framed of the {len(raw_main) / 2**20:g} MiB frame: "
               f"{traces[0]} ({os.path.getsize(os.path.join(tmp, traces[0]))} bytes, {len(events)} events) names "
               f"framed.dispatch_uncompress; {len(kernel_events)} kernel events, K1's {k1_us} us", flush=True)
-    return {k: bench_launches[k] + m.launches - before[k] for k, m in modules.items()}
+    after = bench.launches()
+    return {k: bench_launches[k] + after[k] - before[k] for k in modules}
 
 
 def main() -> int:
@@ -902,6 +911,7 @@ def main() -> int:
     from snappy_tpu_torch.parallel import framed
     from snappy_tpu_torch.parallel import host as fhost
     from snappy_tpu_torch.tools import exp_vector_walk, profile_decode, profile_encode
+    from snappy_tpu_torch.utils import profiling
     from snappy_tpu_torch.utils.metrics import Metrics, time_device_fn
 
     def device_ms(fn, args, iters: int, warmup: int = 1) -> float:
@@ -1020,11 +1030,11 @@ def main() -> int:
     # 4. the slice at full size: a 64 MiB frame through the main path
     raws = [raw_main[i * BLOCK : (i + 1) * BLOCK] for i in range(len(streams))]
     frame = framed.build_frame(streams, raws, len(raw_main))
-    cuda_decode.launches = 0
+    before = profiling.counters()
     t0 = time.perf_counter()
     got = snappy_tpu_torch.uncompress_framed(frame, device="cuda")
     t_first = time.perf_counter() - t0
-    main_launches = cuda_decode.launches
+    main_launches = profiling.since(before)["k1.launches"]
     check(got == raw_main, "uncompress_framed returned wrong bytes")
     check(main_launches > 0, "the main path did not launch the CUDA kernel")
     calls = []
@@ -1063,7 +1073,7 @@ def main() -> int:
           flush=True)
 
     # 5. raw streams
-    before = cuda_decode.launches
+    before = profiling.counters()
     alice = snappy_tpu_torch.uncompress(read("alice29.snappy"), backend="torch", device="cuda")
     check(alice == read("alice29.txt"), "alice29.snappy decoded wrong")
     raw_stream = nat.compress(raw_main)
@@ -1084,7 +1094,7 @@ def main() -> int:
             read(bad), backend="torch", device="cuda")), f"{bad} did not raise")
     print(f"[5 raw] alice29.snappy, 64 MiB native stream ({t_raw:.4f} s whole call on {card}) and "
           f"an unsegmentable 300 KiB literal decoded byte-identical; baddata1-3 raise; "
-          f"kernel launches {cuda_decode.launches - before}", flush=True)
+          f"kernel launches {profiling.since(before)['k1.launches']}", flush=True)
 
     # 6. corrupt frames
     small = framed.build_frame(streams[:64], raws[:64], 64 * BLOCK)
@@ -1140,14 +1150,14 @@ def main() -> int:
           f"(a chase chunk holds {profile_encode.record_chunk()} records)", flush=True)
 
     # 8. the write path at full size: the 64 MiB corpus mix through compress_framed
-    cuda_encode.launches = 0
-    cuda_decode.launches = 0
+    before = profiling.counters()
     t0 = time.perf_counter()
     frame_w = snappy_tpu_torch.compress_framed(raw_main, device="cuda")
     t_first_w = time.perf_counter() - t0
-    enc_launches = cuda_encode.launches
+    moved = profiling.since(before)
+    enc_launches = moved["k2.launches"]
     check(enc_launches > 0, "compress_framed did not launch the CUDA encode kernel")
-    check(cuda_decode.launches == 0, "compress_framed launched the decoder")
+    check(moved["k1.launches"] == 0, "compress_framed launched the decoder")
     check(snappy_tpu_torch.uncompress_framed(frame_w, device="cuda") == raw_main,
           "the written frame does not decode through the port's CUDA decoder")
     check(nat.uncompress(framed.frame_to_raw(frame_w)) == raw_main,
@@ -1201,11 +1211,11 @@ def main() -> int:
         theirs = len(nat.compress(data)) - len(varint.encode32(len(data)))
         check(ours <= theirs, f"{fname}: kernel {ours} bytes > native {theirs}")
         worst.append(ours / theirs)
-    before = cuda_encode.launches
+    before = profiling.counters()
     t0 = time.perf_counter()
     raw_w = snappy_tpu_torch.compress(raw_main, backend="torch", device="cuda")
     t_raw_w = time.perf_counter() - t0
-    check(cuda_encode.launches > before, "compress(backend='torch') did not launch the encode kernel")
+    check(profiling.since(before)["k2.launches"] > 0, "compress(backend='torch') did not launch the encode kernel")
     check(nat.uncompress(raw_w) == raw_main, "the raw stream from compress(backend='torch') does not decode")
     reframed = framed.raw_to_frame(raw_stream, device="cuda")
     check(snappy_tpu_torch.uncompress_framed(reframed, device="cuda") == raw_main,
@@ -1297,7 +1307,7 @@ def main() -> int:
     # bench.py's stage records for the A/B: K1 is its current kernel, K3 its
     # pinned control.
     ab_metrics = Metrics(run={"device": name, "card": card, "blocks": len(raws)})
-    cuda_decode_r4.launches = 0
+    before_ab = profiling.counters()
     ab_rows = {}
     for label, batch, rounds in (("own", own, 3), ("foreign", foreign, 2)):
         args = (*(torch.from_numpy(a).to(dev) for a in batch[:3]), batch[3])
@@ -1328,7 +1338,7 @@ def main() -> int:
               f"K1 {gbps['K1']:.3f} GB/s, K3 {gbps['K3']:.3f} GB/s (best of {rounds} rounds, ms "
               f"{ {k: [round(t, 4) for t in ts] for k, ts in rounds_ms.items()} }); "
               f"vs_r4_same_run {gbps['K1'] / gbps['K3']:.3f}; pick {pick}", flush=True)
-    r4_launches = cuda_decode_r4.launches
+    r4_launches = profiling.since(before_ab)["k3.launches"]
     check(r4_launches > 0, "the decode A/B did not launch K3")
     err11 = 0
     for label, (args, k3_out, _, _) in ab_rows.items():
@@ -1365,10 +1375,10 @@ def main() -> int:
     for variant, g in gates.items():
         print(f"[12 probes] {variant:30s} at knob {g['plain_knob']}: kernel {g['kernel_ms']:.4f} ms, "
               f"plain version {g['plain_ms']:.4f} ms", flush=True)
-    for key in cuda_probes.launches:
-        cuda_probes.launches[key] = 0
+    before = profiling.counters()
     probe_rows = exp_vector_walk.run(probes, prefix="[12 probes] ")
-    probe_launches = dict(cuda_probes.launches)
+    moved = profiling.since(before)
+    probe_launches = {key: moved[f"probe.{key}.launches"] for key in cuda_probes.KERNELS}
     for key, n in probe_launches.items():
         check(n > 0, f"phase 12 did not launch the {key} kernel")
     rate = exp_vector_walk.l2_rate(dev)

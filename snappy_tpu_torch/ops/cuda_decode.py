@@ -25,15 +25,14 @@ what bounds it are in the source's header.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
 
+from ..utils.profiling import count, trace_annotation
 from . import decode_torch, kernels
 from .decode_torch import COMP_PAD
-
-# Kernel launches since import (or since a caller reset it to 0).
-launches = 0
 
 
 def check_args(comp, clens, ulens, out_size: int) -> None:
@@ -61,18 +60,21 @@ def check_args(comp, clens, ulens, out_size: int) -> None:
         raise ValueError(f"need 0 <= ulens <= out_size={out_size} and 0 <= clens <= C-{COMP_PAD}")
 
 
-def launch(stem: str, entry: str, comp: torch.Tensor, clens: torch.Tensor, ulens: torch.Tensor, out_size: int):
+def launch(stem: str, entry: str, comp: torch.Tensor, clens: torch.Tensor, ulens: torch.Tensor, out_size: int,
+           span: str | None = None):
     """Allocate (out, ok, total) on comp's CUDA device and launch the block
     decoder ``entry`` of the kernel source ``stem`` on them (checked
-    arguments; no launch for zero rows)."""
+    arguments; no launch for zero rows), the launch itself in the span
+    ``span`` where one is named."""
     b, c = comp.shape
     out = torch.empty((b, out_size), dtype=torch.uint8, device=comp.device)
     ok = torch.empty(b, dtype=torch.bool, device=comp.device)
     total = torch.empty(b, dtype=torch.int32, device=comp.device)
     if b == 0:
         return out, ok, total
-    with torch.cuda.device(comp.device):
-        rc = getattr(kernels.load(stem), entry)(
+    fn = getattr(kernels.load(stem), entry)
+    with torch.cuda.device(comp.device), trace_annotation(span) if span else contextlib.nullcontext():
+        rc = fn(
             comp.data_ptr(), clens.data_ptr(), ulens.data_ptr(), b, c, out_size,
             out.data_ptr(), ok.data_ptr(), total.data_ptr(),
             torch.cuda.current_stream(comp.device).cuda_stream,
@@ -82,17 +84,18 @@ def launch(stem: str, entry: str, comp: torch.Tensor, clens: torch.Tensor, ulens
 
 
 def decode_blocks(comp: torch.Tensor, clens: torch.Tensor, ulens: torch.Tensor, out_size: int):
-    """Decode B headerless tag streams; see the module docstring."""
-    global launches
-    check_args(comp, clens, ulens, out_size)
-    if comp.device.type == "cpu":
-        return decode_torch.decode_blocks(comp, clens, ulens, out_size)
-    if comp.device.type != "cuda":
-        raise ValueError(f"no block decoder for device {comp.device}")
-    res = launch("decode_blocks", "snappy_cuda_decode_blocks", comp, clens, ulens, out_size)
-    if comp.shape[0]:
-        launches += 1
-    return res
+    """Decode B headerless tag streams; see the module docstring. A CUDA
+    launch counts under ``k1.launches``."""
+    with trace_annotation("k1.decode_blocks"):
+        check_args(comp, clens, ulens, out_size)
+        if comp.device.type == "cpu":
+            return decode_torch.decode_blocks(comp, clens, ulens, out_size)
+        if comp.device.type != "cuda":
+            raise ValueError(f"no block decoder for device {comp.device}")
+        res = launch("decode_blocks", "snappy_cuda_decode_blocks", comp, clens, ulens, out_size, "k1.launch")
+        if comp.shape[0]:
+            count("k1.launches")
+        return res
 
 
 def occupancy() -> tuple[int, int]:

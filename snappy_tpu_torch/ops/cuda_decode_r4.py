@@ -28,15 +28,13 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import count
 from . import cuda_decode, decode_torch, kernels
-
-# Kernel launches since import (or since a caller reset it to 0).
-launches = 0
 
 
 def decode_blocks(comp: torch.Tensor, clens: torch.Tensor, ulens: torch.Tensor, out_size: int):
-    """Decode B headerless tag streams; see the module docstring."""
-    global launches
+    """Decode B headerless tag streams; see the module docstring. A CUDA
+    launch counts under ``k3.launches``."""
     cuda_decode.check_args(comp, clens, ulens, out_size)
     if comp.device.type == "cpu":
         return decode_torch.decode_blocks_r4(comp, clens, ulens, out_size)
@@ -44,7 +42,7 @@ def decode_blocks(comp: torch.Tensor, clens: torch.Tensor, ulens: torch.Tensor, 
         raise ValueError(f"no block decoder for device {comp.device}")
     res = cuda_decode.launch("decode_blocks_r4", "snappy_cuda_decode_blocks_r4", comp, clens, ulens, out_size)
     if comp.shape[0]:
-        launches += 1
+        count("k3.launches")
     return res
 
 

@@ -20,14 +20,12 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import count, trace_annotation
 from . import encode_torch, kernels
 from .encode_torch import BLOCK_MAX_OUT, ENC_PAD
 
 # Largest block the kernel takes: copy offsets are 16 bits.
 MAX_BLOCK = 1 << 16
-
-# Kernel launches since import (or since a caller reset it to 0).
-launches = 0
 
 
 def _check_args(blocks, blens, min_profit: int) -> None:
@@ -59,7 +57,7 @@ def launch(blocks: torch.Tensor, blens: torch.Tensor, min_profit: int):
     if b == 0:
         return out, olens
     lib = kernels.load("encode_blocks")
-    with torch.cuda.device(blocks.device):
+    with torch.cuda.device(blocks.device), trace_annotation("k2.launch"):
         rc = lib.snappy_cuda_encode_blocks(
             blocks.data_ptr(), blens.data_ptr(), b, w, BLOCK_MAX_OUT, min_profit,
             out.data_ptr(), olens.data_ptr(),
@@ -70,14 +68,15 @@ def launch(blocks: torch.Tensor, blens: torch.Tensor, min_profit: int):
 
 
 def encode_blocks(blocks: torch.Tensor, blens: torch.Tensor, min_profit: int):
-    """Encode B blocks into headerless tag streams; see the module docstring."""
-    global launches
-    _check_args(blocks, blens, min_profit)
-    if blocks.device.type == "cpu":
-        return encode_torch.encode_blocks(blocks, blens, min_profit)
-    if blocks.device.type != "cuda":
-        raise ValueError(f"no block encoder for device {blocks.device}")
-    res = launch(blocks, blens, min_profit)
-    if blocks.shape[0]:
-        launches += 1
-    return res
+    """Encode B blocks into headerless tag streams; see the module
+    docstring. A CUDA launch counts under ``k2.launches``."""
+    with trace_annotation("k2.encode_blocks"):
+        _check_args(blocks, blens, min_profit)
+        if blocks.device.type == "cpu":
+            return encode_torch.encode_blocks(blocks, blens, min_profit)
+        if blocks.device.type != "cuda":
+            raise ValueError(f"no block encoder for device {blocks.device}")
+        res = launch(blocks, blens, min_profit)
+        if blocks.shape[0]:
+            count("k2.launches")
+        return res

@@ -5,7 +5,7 @@ one wrapper a kernel, with the contracts of the plain versions in
 ``ops/probes_torch.py`` (same arguments, same results): ``chain`` (P1),
 ``walk8`` (P2), ``walk_scalar`` (P3), ``drain`` (P4), ``scalar_loop`` (P5)
 and ``when_drain`` (P6). The knob is a Python int. Beside them ``l2_read``,
-which ports no TPU kernel and is not counted in ``launches``: one block's
+which ports no TPU kernel and counts no launch: one block's
 read of a buffer from L2, whose cycles bound a one-block drain.
 
 A CUDA tensor launches the kernel on the current stream and returns without
@@ -14,7 +14,8 @@ card, the kernel writes there the clock64() span of its block 0, from which
 two knobs give cycles a step. Given ``lib``, another build of the same
 entry points (such as a parent commit's copy of the source, which
 ``tools/exp_vector_walk.py --parent`` builds), the launch goes to it and is
-not counted in ``launches``. A CPU tensor goes to the plain version, which
+not counted. Every other launch counts under ``probe.<kernel>.launches``,
+``<kernel>`` one of ``KERNELS``. A CPU tensor goes to the plain version, which
 counts no cycles and takes no ``lib``. No other device is taken.
 
 P2 takes one length a walk, where the reference takes one a lane: its kernel
@@ -28,14 +29,15 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import count
 from . import kernels, probes_torch
 from .probes_torch import (
     CHAIN_MODES, DRAIN_MODES, LANES, NCP, R_ROWS, SCALAR_VARIANTS, WHEN_MODES, WHEN_OUT_ROWS,
     WHEN_RECORDS, WHEN_SRC_ROWS,
 )
 
-# Kernel launches since import (or since a caller set them to 0), by kernel.
-launches = dict.fromkeys(("chain", "walk8", "walk_scalar", "drain", "scalar_loop", "when_drain"), 0)
+# The probe kernels, as their launch counters name them.
+KERNELS = ("chain", "walk8", "walk_scalar", "drain", "scalar_loop", "when_drain")
 _INT_MAX = (1 << 31) - 1
 _SCALAR_VARIANTS = {v[1:] for v in SCALAR_VARIANTS}  # (work, unroll, cond, chain)
 
@@ -81,7 +83,7 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(kernel: str | None, entry: str, device, cycles, *args, lib=None) -> None:
-    """Launch ``entry`` and count it under ``kernel`` in ``launches`` (not
+    """Launch ``entry`` and count it under ``probe.<kernel>.launches`` (not
     for another build, ``lib``, nor for ``kernel`` None)."""
     with torch.cuda.device(device):
         rc = getattr(lib if lib is not None else kernels.load("exp_vector_walk"), entry)(
@@ -89,7 +91,7 @@ def _launch(kernel: str | None, entry: str, device, cycles, *args, lib=None) -> 
         )
     kernels.check(rc, f"{entry} launch")
     if lib is None and kernel is not None:
-        launches[kernel] += 1
+        count(f"probe.{kernel}.launches")
 
 
 def chain(knob: int, x: torch.Tensor, mode: str, cycles: torch.Tensor | None = None, lib=None) -> torch.Tensor:

@@ -40,7 +40,7 @@ from ..core.config import DEFAULT_MIN_PROFIT
 from ..core.constants import BLOCK_SIZE
 from ..core.errors import CorruptInputError, InputTooLargeError
 from ..native import runtime as nat
-from ..utils.profiling import trace_annotation
+from ..utils.profiling import count, trace_annotation
 from . import decode_torch
 from .decode_torch import COMP_PAD
 from .encode_torch import ENC_PAD
@@ -103,14 +103,16 @@ def pack_batch(span: np.ndarray, clens: np.ndarray, ulens: np.ndarray, rows: int
     bytes, padded with empty rows (clen = ulen = 0) to ``rows``: (comp
     uint8[rows, C], clens int32[rows], ulens int32[rows]) on ``device``,
     with the rows ``pack_rows`` gives. The span and the lengths go over in
-    one ``stage``; the rows are built on the device (``rows_from_span``)."""
+    one ``stage``; the rows are built on the device (``rows_from_span``).
+    Runs in the span ``host.pack``."""
     n = len(clens)
     if len(span) != int(np.sum(clens, dtype=np.int64)):
         raise ValueError(f"the span holds {len(span)} bytes, the streams {int(np.sum(clens, dtype=np.int64))}")
-    lens = np.zeros((2, rows), np.int32)
-    lens[0, :n], lens[1, :n] = clens, ulens
-    body, lens = stage([span, lens], device)
-    return rows_from_span(body, lens[0], row_width(clens)), lens[0], lens[1]
+    with trace_annotation("host.pack"):
+        lens = np.zeros((2, rows), np.int32)
+        lens[0, :n], lens[1, :n] = clens, ulens
+        body, lens = stage([span, lens], device)
+        return rows_from_span(body, lens[0], row_width(clens)), lens[0], lens[1]
 
 
 def blockify(inp: np.ndarray, block_size: int, rows: int | None = None) -> tuple[np.ndarray, np.ndarray]:
@@ -157,21 +159,24 @@ def stage(arrays: list[np.ndarray], device) -> list[torch.Tensor]:
     queued on the current stream without waiting for the work already
     there; the buffer comes from PyTorch's caching host allocator, which
     hands it out again once that copy has run, so a stream of batches
-    reuses its staging."""
+    reuses its staging. Runs in the span ``host.stage`` and counts the
+    arrays' bytes under ``host.staged_bytes``."""
     arrays = [np.ascontiguousarray(a) for a in arrays]
-    if torch.device(device).type != "cuda":
-        return [torch.from_numpy(a if a.flags.writeable else a.copy()).to(device) for a in arrays]
-    offsets, end = [], 0
-    for a in arrays:
-        offsets.append(end)
-        end += -(-a.nbytes // _STAGE_ALIGN) * _STAGE_ALIGN
-    pinned = torch.empty(end, dtype=torch.uint8, pin_memory=True)
-    host = pinned.numpy()
-    for a, o in zip(arrays, offsets):
-        copy_into(host[o : o + a.nbytes], a.reshape(-1).view(np.uint8))
-    whole = pinned.to(device, non_blocking=True)
-    dtypes = [torch.from_numpy(np.empty(0, a.dtype)).dtype for a in arrays]
-    return [whole[o : o + a.nbytes].view(t).view(a.shape) for a, o, t in zip(arrays, offsets, dtypes)]
+    count("host.staged_bytes", sum(a.nbytes for a in arrays))
+    with trace_annotation("host.stage"):
+        if torch.device(device).type != "cuda":
+            return [torch.from_numpy(a if a.flags.writeable else a.copy()).to(device) for a in arrays]
+        offsets, end = [], 0
+        for a in arrays:
+            offsets.append(end)
+            end += -(-a.nbytes // _STAGE_ALIGN) * _STAGE_ALIGN
+        pinned = torch.empty(end, dtype=torch.uint8, pin_memory=True)
+        host = pinned.numpy()
+        for a, o in zip(arrays, offsets):
+            copy_into(host[o : o + a.nbytes], a.reshape(-1).view(np.uint8))
+        whole = pinned.to(device, non_blocking=True)
+        dtypes = [torch.from_numpy(np.empty(0, a.dtype)).dtype for a in arrays]
+        return [whole[o : o + a.nbytes].view(t).view(a.shape) for a, o, t in zip(arrays, offsets, dtypes)]
 
 
 def to_device(a: np.ndarray, device) -> torch.Tensor:
@@ -205,9 +210,11 @@ class HostCopy:
             self._event.record()
 
     def wait(self) -> list[np.ndarray]:
-        """The results as host arrays, once their own copies have landed."""
+        """The results as host arrays, once their own copies have landed;
+        the wait for them, on a card, in the span ``host.wait``."""
         if self._event is not None:
-            self._event.synchronize()
+            with trace_annotation("host.wait"):
+                self._event.synchronize()
         return [h.numpy() for h in self._host]
 
 
@@ -226,8 +233,7 @@ def uncompress(data, *, device="cuda") -> bytes:
         if 3 * ulen > 64 * len(body):
             raise CorruptInputError("header claims more output than the stream can hold")
         if torch.device(device).type == "cpu" and len(body) > decode_torch.RAW_WHOLE_LIMIT:
-            with trace_annotation("snappy.uncompress_windowed"):
-                return decode_torch.decode_raw_windowed(body, ulen, 0)
+            return decode_torch.decode_raw_windowed(body, ulen, 0)
         if ulen > _I32_MAX:
             raise NotImplementedError("unsegmentable raw stream over 2 GiB")
         starts, oplens = np.zeros(1, np.int64), np.array([ulen], np.int64)
@@ -244,8 +250,7 @@ def _uncompress_blocked(body: np.ndarray, starts: np.ndarray, oplens: np.ndarray
     clens = np.diff(np.append(starts, len(body)))
     out_size = -(-max(int(oplens.max()), 1) // 16) * 16
     batch = pack_batch(body[int(starts[0]) :], clens, oplens, len(starts), device)
-    with trace_annotation("snappy.uncompress_blocked"):
-        out, ok, _ = HostCopy(block_decoder(device)(*batch, out_size)).wait()
+    out, ok, _ = HostCopy(block_decoder(device)(*batch, out_size)).wait()
     if not ok.all():
         raise CorruptInputError("corrupt snappy stream")
     if (oplens == out_size).all():
@@ -267,11 +272,10 @@ def compress(data, *, device="cuda", encoder: str = "kernel") -> bytes:
     header = varint.encode32(n)
     if n == 0:
         return header
-    with trace_annotation("snappy.compress"):
-        buf, blens = blockify(inp, BLOCK_SIZE)
-        k = ROUTE_CHUNK_BLOCKS
-        host_idx = np.concatenate(
-            [c + route.host_blocks(buf[c : c + k], blens[c : c + k]) for c in range(0, len(blens), k)]
-        )
-        ticket = route.dispatch_routed(buf, blens, host_idx, device, DEFAULT_MIN_PROFIT, encoder)
-        return header + b"".join(route.assemble_routed(ticket))
+    buf, blens = blockify(inp, BLOCK_SIZE)
+    k = ROUTE_CHUNK_BLOCKS
+    host_idx = np.concatenate(
+        [c + route.host_blocks(buf[c : c + k], blens[c : c + k]) for c in range(0, len(blens), k)]
+    )
+    ticket = route.dispatch_routed(buf, blens, host_idx, device, DEFAULT_MIN_PROFIT, encoder)
+    return header + b"".join(route.assemble_routed(ticket))

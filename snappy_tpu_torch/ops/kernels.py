@@ -8,11 +8,16 @@ nothing else does. ``load(*stems)`` builds and loads only the sources it is
 asked for (those not loaded yet by concurrent nvcc processes), so a wrapper
 never waits for, or fails on, another kernel's source. Nothing is built or
 imported when this module is imported.
+
+A ``load`` that finds a source not loaded yet runs in the span
+``kernels.load``, its builds in the child ``kernels.build``, and adds its
+seconds (finding nvcc, hashing, nvcc, the dlopen) to ``kernels.load_s``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import time
 import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -20,6 +25,7 @@ from pathlib import Path
 import torch
 
 from ..native.build import build_shared
+from ..utils.profiling import count, trace_annotation
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = [
@@ -84,17 +90,20 @@ def load(*stems: str) -> types.SimpleNamespace:
         raise ValueError(f"no kernel source {unknown}; known: {list(ENTRIES)}")
     missing = [s for s in dict.fromkeys(stems) if s not in _libraries]
     if missing:
-        compiler = [str(nvcc_path()), *NVCC_FLAGS]
-        with ThreadPoolExecutor(len(missing)) as pool:
-            paths = list(pool.map(
-                lambda stem: build_shared(compiler, [CSRC / f"{stem}.cu"], f"snappy_cuda_{stem}"), missing
-            ))
-        for stem, path in zip(missing, paths):
-            cdll = ctypes.CDLL(str(path))
-            for name, (restype, argtypes) in ENTRIES[stem].items():
-                fn = getattr(cdll, name)
-                fn.restype, fn.argtypes = restype, argtypes
-            _libraries[stem] = cdll
+        t0 = time.perf_counter()
+        with trace_annotation("kernels.load"):
+            compiler = [str(nvcc_path()), *NVCC_FLAGS]
+            with trace_annotation("kernels.build"), ThreadPoolExecutor(len(missing)) as pool:
+                paths = list(pool.map(
+                    lambda stem: build_shared(compiler, [CSRC / f"{stem}.cu"], f"snappy_cuda_{stem}"), missing
+                ))
+            for stem, path in zip(missing, paths):
+                cdll = ctypes.CDLL(str(path))
+                for name, (restype, argtypes) in ENTRIES[stem].items():
+                    fn = getattr(cdll, name)
+                    fn.restype, fn.argtypes = restype, argtypes
+                _libraries[stem] = cdll
+        count("kernels.load_s", time.perf_counter() - t0)
     ns = types.SimpleNamespace(libraries={s: _libraries[s] for s in stems})
     for stem in stems:
         for name in ENTRIES[stem]:

@@ -17,7 +17,7 @@ import os
 import numpy as np
 
 from ..native import runtime as nat
-from ..utils.profiling import trace_annotation
+from ..utils.profiling import count, trace_annotation
 from .host import HostCopy, stage
 from .select import block_encoder
 
@@ -67,22 +67,25 @@ def dup_ratios(buf: np.ndarray, blens: np.ndarray, n_blocks: int) -> np.ndarray:
 
 def host_blocks(buf: np.ndarray, blens: np.ndarray) -> np.ndarray:
     """Indices of the blocks of the batch to compress on the host: none
-    where the native encoder cannot load, as in the reference."""
+    where the native encoder cannot load, as in the reference. Runs in the
+    span ``route.detect``."""
     if not nat.available():
         return np.zeros(0, np.int64)
-    return np.flatnonzero(dup_ratios(buf, blens, len(blens)) < DUP_THRESHOLD)
+    with trace_annotation("route.detect"):
+        return np.flatnonzero(dup_ratios(buf, blens, len(blens)) < DUP_THRESHOLD)
 
 
 def native_streams_for(buf: np.ndarray, blens: np.ndarray, host_idx) -> dict[int, bytes]:
     """Tag streams of the rows ``host_idx``, by the native greedy encoder:
     one batched call per worker thread, the threads splitting the rows (the
-    call releases the GIL, so the encoders run on all cores)."""
+    call releases the GIL, so the encoders run on all cores), in the span
+    ``route.native_encode``."""
     idx = [int(i) for i in host_idx]
     if not idx:
         return {}
     workers = min(os.cpu_count() or 1, 8, len(idx))
     chunks = [idx[k::workers] for k in range(workers)]
-    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+    with trace_annotation("route.native_encode"), concurrent.futures.ThreadPoolExecutor(workers) as pool:
         outs = list(pool.map(lambda c: nat.compress_rows(buf, blens, c), chunks))
     streams = {}
     for c, s in zip(chunks, outs):
@@ -94,11 +97,14 @@ def dispatch_routed(buf: np.ndarray, blens: np.ndarray, host_idx, device, min_pr
     """Queue the encode of the blocks (buf, blens): the rows of
     ``host_idx`` on the host, the others with the block encoder
     ``encoder`` (``select.ENCODERS``) on ``device``. The device launch is
-    queued before the host encoders run. Returns a ticket for
+    queued before the host encoders run. Counts the blocks under
+    ``route.host_blocks`` and ``route.device_blocks``. Returns a ticket for
     :func:`assemble_routed`."""
     encode = block_encoder(device, encoder)
     n_blocks = len(blens)
     dev_idx = np.setdiff1d(np.arange(n_blocks), host_idx)
+    count("route.host_blocks", n_blocks - len(dev_idx))
+    count("route.device_blocks", len(dev_idx))
     dev = None
     if len(dev_idx):
         with trace_annotation("route.dispatch_device"):
@@ -113,8 +119,7 @@ def dispatch_routed(buf: np.ndarray, blens: np.ndarray, host_idx, device, min_pr
             # before the kernel has run, and waiting for them would wait for
             # every batch queued before this one.
             dev = HostCopy(encode(blocks, lens, min_profit))
-    with trace_annotation("route.native_streams"):
-        native = native_streams_for(buf, blens, host_idx)
+    native = native_streams_for(buf, blens, host_idx)
     return dev, dev_idx, native, n_blocks
 
 

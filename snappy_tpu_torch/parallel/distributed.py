@@ -31,6 +31,7 @@ import torch.distributed as dist
 from ..core.config import DEFAULT_MIN_PROFIT
 from ..ops import select
 from ..ops.host import HostCopy, stage
+from ..utils.profiling import trace_annotation
 
 AXIS = "blocks"
 
@@ -136,24 +137,26 @@ def decompress_blocks(comp, clens, ulens, mesh: Mesh, out_size: int, gather: boo
     """Decode a uint8[NB, C] batch of headerless block streams sharded over
     ``mesh``: host arrays, or tensors (``host.frame_batch``) that each
     shard's device takes from where they lie. Returns (outs, oks, totals)
-    per device in mesh order, as compress_blocks does."""
-    if isinstance(comp, torch.Tensor):
-        def shard(dev, lo, hi):
-            return [t[lo:hi].to(dev, non_blocking=True) for t in (comp, clens, ulens)]
-    else:
-        args = (comp, np.asarray(clens, dtype=np.int32), np.asarray(ulens, dtype=np.int32))
+    per device in mesh order, as compress_blocks does. Runs in the span
+    ``blocks.decompress``."""
+    with trace_annotation("blocks.decompress"):
+        if isinstance(comp, torch.Tensor):
+            def shard(dev, lo, hi):
+                return [t[lo:hi].to(dev, non_blocking=True) for t in (comp, clens, ulens)]
+        else:
+            args = (comp, np.asarray(clens, dtype=np.int32), np.asarray(ulens, dtype=np.int32))
 
-        def shard(dev, lo, hi):
-            return stage([a[lo:hi] for a in args], dev)
-    outs, oks, totals = [], [], []
-    for dev, (lo, hi) in zip(mesh.devices, _shards(mesh, len(comp))):
-        out, ok, total = select.block_decoder(dev)(*shard(dev, lo, hi), out_size)
-        outs.append(out)
-        oks.append(ok)
-        totals.append(total)
-    if gather:
-        return _gather(outs, mesh), _gather(oks, mesh), _gather(totals, mesh)
-    return outs, oks, totals
+            def shard(dev, lo, hi):
+                return stage([a[lo:hi] for a in args], dev)
+        outs, oks, totals = [], [], []
+        for dev, (lo, hi) in zip(mesh.devices, _shards(mesh, len(comp))):
+            out, ok, total = select.block_decoder(dev)(*shard(dev, lo, hi), out_size)
+            outs.append(out)
+            oks.append(ok)
+            totals.append(total)
+        if gather:
+            return _gather(outs, mesh), _gather(oks, mesh), _gather(totals, mesh)
+        return outs, oks, totals
 
 
 def to_host(sharded) -> list[HostCopy]:

@@ -34,6 +34,7 @@ from ..core.config import DEFAULT_FRAME_CONFIG, FrameConfig
 from ..core.errors import CorruptInputError
 from ..native import runtime as nat
 from ..ops.host import HOST_POOL, HOST_THREADS
+from ..utils.profiling import count, trace_annotation
 
 MAGIC = b"SNPTPU01"
 _HEADER = struct.Struct("<8sIIQI")
@@ -46,17 +47,22 @@ def crc32s(blocks: list) -> list[int]:
     one native call (``native.runtime.crc32_rows``), which holds no
     interpreter lock. zlib.crc32 releases it too, but a call a 64 KiB block
     hands the lock over so often that threads of such calls run no faster
-    than one: without the native library the crcs run on this thread."""
-    if len(blocks) < 2 or not nat.available():
-        return [zlib.crc32(b) for b in blocks]
-    views = [np.frombuffer(b, np.uint8) for b in blocks]
-    ptrs = np.fromiter((v.ctypes.data for v in views), np.uint64, len(views))
-    lens = np.fromiter((v.size for v in views), np.int64, len(views))
-    out = np.empty(len(views), np.uint32)
-    per = -(-len(views) // HOST_THREADS)
-    runs = [slice(i, i + per) for i in range(0, len(views), per)]
-    list(HOST_POOL.map(lambda r: nat.crc32_rows(ptrs[r], lens[r], out[r]), runs))
-    return out.tolist()
+    than one: without the native library the crcs run on this thread. Runs
+    in the span ``framed.crc`` and counts the bytes under
+    ``framed.crc_bytes``."""
+    with trace_annotation("framed.crc"):
+        if len(blocks) < 2 or not nat.available():
+            count("framed.crc_bytes", sum(memoryview(b).nbytes for b in blocks))
+            return [zlib.crc32(b) for b in blocks]
+        views = [np.frombuffer(b, np.uint8) for b in blocks]
+        ptrs = np.fromiter((v.ctypes.data for v in views), np.uint64, len(views))
+        lens = np.fromiter((v.size for v in views), np.int64, len(views))
+        count("framed.crc_bytes", int(lens.sum()))
+        out = np.empty(len(views), np.uint32)
+        per = -(-len(views) // HOST_THREADS)
+        runs = [slice(i, i + per) for i in range(0, len(views), per)]
+        list(HOST_POOL.map(lambda r: nat.crc32_rows(ptrs[r], lens[r], out[r]), runs))
+        return out.tolist()
 
 
 class FrameIndex:
@@ -94,30 +100,32 @@ class FrameIndex:
 def parse_index(frame: bytes, require_payload: bool = True) -> FrameIndex:
     """Parse header + index, and check that the payload is all there.
     ``require_payload=False`` validates the header and index alone, for a
-    reader that fetches payload ranges separately (``multihost.py``)."""
-    if len(frame) < _HEADER.size:
-        raise CorruptInputError("frame too short")
-    magic, flags, block_size, total_len, n_blocks = _HEADER.unpack_from(frame, 0)
-    if magic != MAGIC:
-        raise CorruptInputError("bad frame magic")
-    if block_size < 1 or block_size > 1 << 16:
-        raise CorruptInputError("bad frame block size")
-    expect_blocks = -(-total_len // block_size) if total_len else 0
-    if n_blocks != expect_blocks:
-        raise CorruptInputError("frame block count mismatch")
-    off = _HEADER.size
-    index_len = 4 * n_blocks * (2 if flags & FLAG_CRC else 1)
-    if off + index_len > len(frame):
-        raise CorruptInputError("frame index truncated")
-    comp_lens = np.frombuffer(frame, np.uint32, n_blocks, off)
-    off += 4 * n_blocks
-    crcs = None
-    if flags & FLAG_CRC:
-        crcs = np.frombuffer(frame, np.uint32, n_blocks, off)
+    reader that fetches payload ranges separately (``multihost.py``). Runs
+    in the span ``framed.parse``."""
+    with trace_annotation("framed.parse"):
+        if len(frame) < _HEADER.size:
+            raise CorruptInputError("frame too short")
+        magic, flags, block_size, total_len, n_blocks = _HEADER.unpack_from(frame, 0)
+        if magic != MAGIC:
+            raise CorruptInputError("bad frame magic")
+        if block_size < 1 or block_size > 1 << 16:
+            raise CorruptInputError("bad frame block size")
+        expect_blocks = -(-total_len // block_size) if total_len else 0
+        if n_blocks != expect_blocks:
+            raise CorruptInputError("frame block count mismatch")
+        off = _HEADER.size
+        index_len = 4 * n_blocks * (2 if flags & FLAG_CRC else 1)
+        if off + index_len > len(frame):
+            raise CorruptInputError("frame index truncated")
+        comp_lens = np.frombuffer(frame, np.uint32, n_blocks, off)
         off += 4 * n_blocks
-    if require_payload and off + int(comp_lens.sum(dtype=np.int64)) > len(frame):
-        raise CorruptInputError("frame payload truncated")
-    return FrameIndex(flags, block_size, total_len, comp_lens, crcs, off)
+        crcs = None
+        if flags & FLAG_CRC:
+            crcs = np.frombuffer(frame, np.uint32, n_blocks, off)
+            off += 4 * n_blocks
+        if require_payload and off + int(comp_lens.sum(dtype=np.int64)) > len(frame):
+            raise CorruptInputError("frame payload truncated")
+        return FrameIndex(flags, block_size, total_len, comp_lens, crcs, off)
 
 
 def build_frame_header(

@@ -126,18 +126,16 @@ def dispatch_uncompress(frame: bytes, mesh=None, *, device="cuda"):
     """Launch the decode of every block of ``frame`` on ``device`` (or over
     ``mesh``) and queue the copy of its results to the host. Returns a
     ticket for ``assemble_uncompress``."""
-    idx = framed.parse_index(frame)
-    if idx.n_blocks == 0:
-        return (idx, None)
-    if mesh is None:
-        batch = frame_batch(frame, idx, device=device)
-        with trace_annotation("framed.dispatch_uncompress"):
-            return (idx, [HostCopy(block_decoder(device)(*batch))])
-    # The rows are built on the first device of the mesh and each shard
-    # goes to its own from there.
-    comp, clens, ulens, out_size = frame_batch(frame, idx, distributed.pad_block_count(idx.n_blocks, mesh.size),
-                                               mesh.devices[0])
     with trace_annotation("framed.dispatch_uncompress"):
+        idx = framed.parse_index(frame)
+        if idx.n_blocks == 0:
+            return (idx, None)
+        if mesh is None:
+            return (idx, [HostCopy(block_decoder(device)(*frame_batch(frame, idx, device=device)))])
+        # The rows are built on the first device of the mesh and each shard
+        # goes to its own from there.
+        comp, clens, ulens, out_size = frame_batch(frame, idx, distributed.pad_block_count(idx.n_blocks, mesh.size),
+                                                   mesh.devices[0])
         return (idx, distributed.to_host(distributed.decompress_blocks(comp, clens, ulens, mesh, out_size)))
 
 
@@ -162,15 +160,19 @@ def assemble_uncompress_array(ticket) -> np.ndarray:
             raise CorruptInputError(f"corrupt framed block {int(np.flatnonzero(~ok)[0])}")
         # Rows are block_size wide and each holds its block, so the stream
         # is the rows joined, cut at total_len.
-        body = join_rows(outs).reshape(-1)[: idx.total_len]
+        with trace_annotation("framed.join"):
+            body = join_rows(outs).reshape(-1)[: idx.total_len]
         bs = int(idx.block_size)
         framed.verify_crcs(idx, [body[i * bs : (i + 1) * bs] for i in range(idx.n_blocks)])
         return body
 
 
 def assemble_uncompress(ticket) -> bytes:
-    """``assemble_uncompress_array`` as bytes."""
-    return assemble_uncompress_array(ticket).tobytes()
+    """``assemble_uncompress_array`` as bytes, the copy in the span
+    ``framed.join``."""
+    body = assemble_uncompress_array(ticket)
+    with trace_annotation("framed.join"):
+        return body.tobytes()
 
 
 def uncompress_framed(frame: bytes, mesh=None, *, device="cuda") -> bytes:

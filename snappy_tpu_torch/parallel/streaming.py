@@ -12,7 +12,8 @@ CUDA stream, records an event after them and returns without waiting for
 the card, so while the card codes chunk k the host reads chunk k+1, and
 assembles and writes frame k-d, waiting for that frame's event alone.
 Memory, pinned buffers included, stays bounded by ``PIPELINE_DEPTH`` + 1
-frames.
+frames. The reads of ``src`` and the writes to ``dst`` run in the spans
+``stream.read`` and ``stream.write``.
 
 Recovery: blocks are stateless and idempotent, so a frame whose decode
 fails with anything but ``CorruptInputError`` (a fault on the card raises
@@ -37,6 +38,7 @@ import numpy as np
 from ..core.config import DEFAULT_FRAME_CONFIG, FrameConfig
 from ..core.errors import CorruptInputError
 from ..ops.select import check_encoder
+from ..utils.profiling import trace_annotation
 from . import framed
 from . import host as _host
 
@@ -116,14 +118,16 @@ def compress_stream(
     eof = False
     while not eof or pending:
         if not eof:
-            chunk = src.read(chunk_bytes)
+            with trace_annotation("stream.read"):
+                chunk = src.read(chunk_bytes)
             if chunk:
                 pending.append(_host.dispatch_compress(chunk, config, mesh, device=device, encoder=encoder))
             else:
                 eof = True
         while pending and (len(pending) > PIPELINE_DEPTH or eof):
             frame = _host.assemble_compress(pending.popleft())
-            dst.write(frame)
+            with trace_annotation("stream.write"):
+                dst.write(frame)
             total += len(frame)
     return total
 
@@ -173,14 +177,16 @@ def uncompress_stream(src: BinaryIO, dst: BinaryIO, mesh=None, max_retries: int 
     eof = False
     while not eof or pending:
         if not eof:
-            frame = next(it, None)
+            with trace_annotation("stream.read"):
+                frame = next(it, None)
             if frame is None:
                 eof = True
             else:
                 pending.append((frame, _host.dispatch_uncompress(frame, mesh, device=device)))
         while pending and (len(pending) > PIPELINE_DEPTH or eof):
             out = commit(*pending.popleft())
-            dst.write(out)
+            with trace_annotation("stream.write"):
+                dst.write(out)
             total += len(out)
             frames += 1
     last_stats = {"frames": frames, "retries": retries}

@@ -95,6 +95,7 @@ from ..ops.decode_torch import COMP_PAD, RAW_WHOLE_LIMIT
 from ..ops.encode_torch import BLOCK_MAX_OUT
 from ..ops.host import blockify, to_device
 from ..parallel import distributed, streaming
+from ..utils import profiling
 from ..utils.metrics import Metrics, device_times
 from .profile_stream import corpus_stream
 
@@ -108,7 +109,8 @@ BATCH = 128  # blocks a dispatch
 B = BLOCK_SIZE
 # The decode A/B's kernels, under bench.py's keys: K1 and the pinned K3.
 DECODERS = {"r5_farnear": cuda_decode.decode_blocks, "r4_grouped": cuda_decode_r4.decode_blocks}
-KERNEL_MODULES = {"decode_blocks": cuda_decode, "encode_blocks": cuda_encode, "decode_blocks_r4": cuda_decode_r4}
+# K1's, K2's and K3's launch counters, by kernel source.
+KERNEL_COUNTERS = {"decode_blocks": "k1.launches", "encode_blocks": "k2.launches", "decode_blocks_r4": "k3.launches"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -126,7 +128,9 @@ def kernel_name(device: torch.device, kernel: str) -> str:
 
 
 def launches() -> dict[str, int]:
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    """Each kernel's launches so far in this process, by kernel source."""
+    counts = profiling.counters()
+    return {stem: int(counts.get(counter, 0)) for stem, counter in KERNEL_COUNTERS.items()}
 
 
 def _stats(times: list[float]) -> dict:
@@ -368,12 +372,13 @@ def windowed_stage(device: torch.device, metrics: Metrics, target: int = 2 << 20
         decoder = "decode_torch.decode_raw_windowed"
     else:
         decoder = "plain K1 (decode_torch.decode_blocks), one row"
-    before = cuda_decode.launches
+    before = launches()
     t0 = time.perf_counter()
     out = uncompress(stream, backend="torch", device=device)
     t = time.perf_counter() - t0
     check(out == expect, "windowed fallback mismatch")
-    check(device.type != "cuda" or cuda_decode.launches == before + 1, "the hostile stream was not one launch of K1")
+    check(device.type != "cuda" or launches()["decode_blocks"] == before["decode_blocks"] + 1,
+          "the hostile stream was not one launch of K1")
     metrics.add(stage="decode_windowed_fallback", bytes=len(expect), gbps=len(expect) / t / 1e9, decoder=decoder,
                 note="hostile valid stream (unsegmentable) through uncompress(backend='torch'): one row, "
                 "host clock around the whole call")
@@ -518,7 +523,7 @@ def bench(device, bench_bytes: int, foreign: bool = True, windowed: bool = True,
             raise RuntimeError("bench: --device cuda, but no CUDA device is available")
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        kernels.load(*KERNEL_MODULES)  # one nvcc a source, all at once
+        kernels.load(*KERNEL_COUNTERS)  # one nvcc a source, all at once
     elif device.type != "cpu":
         raise ValueError(f"bench: no codec for device {device}")
     name = torch.cuda.get_device_name(device) if on_card else "cpu"

@@ -79,7 +79,7 @@ class Probe:
     wrapper, ``plain(knob, *args)`` the plain version."""
 
     name: str
-    kernel: str  # key of cuda_probes.launches
+    kernel: str  # one of cuda_probes.KERNELS
     fn: Callable
     plain: Callable
     args: tuple

@@ -34,8 +34,9 @@ import time
 import torch
 import torch.distributed as dist
 
-from ..ops import cuda_decode, cuda_encode, kernels, select
+from ..ops import kernels, select
 from ..parallel import multihost
+from ..utils import profiling
 
 
 def main(argv=None) -> int:
@@ -69,7 +70,7 @@ def main(argv=None) -> int:
             torch.zeros(1, device=dev)
             kernels.load("encode_blocks", "decode_blocks")
             rec["setup_s"] = time.perf_counter() - t0
-        cuda_encode.launches = cuda_decode.launches = 0
+        before = profiling.counters()
         if not args.decode_only:
             t0 = time.perf_counter()
             rec["frame_bytes"] = multihost.compress_framed(args.in_path, args.frame_path, mesh=mesh,
@@ -78,7 +79,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         rec["bytes"] = multihost.uncompress_framed(args.frame_path, args.out_path, mesh=mesh)
         rec["uncompress_s"] = time.perf_counter() - t0
-        rec["launches"] = {"encode_blocks": cuda_encode.launches, "decode_blocks": cuda_decode.launches}
+        moved = profiling.since(before)
+        rec["launches"] = {"encode_blocks": moved["k2.launches"], "decode_blocks": moved["k1.launches"]}
         print(json.dumps(rec), flush=True)
     finally:
         dist.destroy_process_group()

@@ -10,23 +10,31 @@ same frames one at a time through ``compress_framed`` and
 pipelined, after one warm-up frame. Every run must give the bytes of the
 first.
 
-Each call of ``parallel/host.py``'s dispatch and assemble functions, and of
-the stages inside them, is timed on the host clock: for encode the routing
-detector (``route.host_blocks``), the staged copy to the device
-(``route.stage``), the kernel's launch and the routed blocks' host encode;
-for decode the staged copy of the payload and lengths (``ops.host.stage``),
-the rows' packing on the device (``ops.host.rows_from_span``), the launch
-and the crc check (``framed.verify_crcs``). What dispatch holds beyond its
-stages is cutting blocks, queuing the results' copy back and taking crcs
-(encode) or parsing the index (decode). On a CUDA device the wait of each
-assemble for its own frame's results (``ops.host.HostCopy.wait``, the
-frame's event) is timed apart: the time the host stands idle for the card
-while the frames queued after it run on. A decode's assemble is
-``host.assemble_uncompress_array``, which a stream writes out as it is;
-one frame at a time, ``uncompress_framed`` joins it into bytes after it.
-What the wall time holds beyond dispatch and assemble is reading and
-writing the streams (the pipeline's ``read`` and ``write`` spans), or that
-join.
+The stages are the program's own spans (``utils/profiling.py``), recorded
+under ``profiling.recording()``; each is printed as its self time summed
+over the run, under the name of the dispatch or assemble call it lies in
+(``parallel/host.py``): for encode the routing detector
+(``dispatch_compress.route_detect``), the staged copy to the device
+(``.copy_in``), the kernel's wrapper (``.launch``), the routed blocks' host
+encode (``.native_encode``) and the crcs (``.crc``); for decode the index
+(``dispatch_uncompress.framed.parse``), the staged copy of the payload and
+lengths (``.copy_in``), the rows' packing on the device (``.pack``), the
+kernel's wrapper (``.launch``), the crc check (``assemble_uncompress.crc``)
+and the rows joined (``.framed.join``). A span with no name of its own here
+keeps the program's (``dispatch_uncompress.k1.launch``: the launch itself).
+``dispatch_<direction>`` and ``assemble_<direction>`` are what those calls
+hold beyond their stages. On a CUDA device the wait of each assemble for its
+own frame's results (``host.wait``, the frame's event) is its ``.wait``: the
+time the host stands idle for the card while the frames queued after it run
+on. A decode's assemble is ``host.assemble_uncompress_array``, which a
+stream writes out as it is; one frame at a time, ``uncompress_framed``
+joins it into bytes after it (``framed.join``). What the wall time holds
+beyond dispatch and assemble is reading and writing the streams (the
+pipeline's ``read`` and ``write``), or that join. Each run also gives the
+counters it moved: blocks routed to the host and left on the card, bytes
+staged, bytes whose crc was taken, and spans dropped past the registry's
+bound (a nonzero count means the stages miss time). A line gives the kernel loader's
+spans (``kernels.load``, its nvcc ``kernels.build``) in the process.
 
 Then two one-off measures. How an encoded frame's results should come
 back (``fetch_choice``): whole rows into pinned memory behind an event, as
@@ -35,14 +43,14 @@ only each row's bytes, which needs two host waits. And the card's busy
 share of one pipelined decode of the whole sequence (``busy_share``): the
 union of the kernels and copies in a ``utils.profiling.profile_to`` trace
 over the host's wall time inside it. The card's name and power limit come
-first, one line a run, a line each for the two measures, and a
-``{"profile_stream": [...], "fetch": {...}, "busy": {...}}`` line last.
+first, one line a run, the loader's line, a line each for the two measures,
+and a ``{"profile_stream": [...], "loader": {...}, "fetch": {...},
+"busy": {...}}`` line last.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import io
 import json
 import os
@@ -60,8 +68,8 @@ from .. import parallel
 from ..core.config import DEFAULT_MIN_PROFIT
 from ..ops import host as ohost
 from ..ops import route
-from ..parallel import framed, streaming
-from ..parallel import host as phost
+from ..parallel import streaming
+from ..utils import profiling
 from ..utils.profiling import profile_to
 
 BLOCK = 1 << 16
@@ -85,80 +93,43 @@ def corpus_stream(target: int) -> bytes:
     return b"".join(out)[:target]
 
 
-@contextlib.contextmanager
-def timed_stages(device, spans: dict):
-    """Time every call of the dispatch and assemble functions and their
-    stages into ``spans`` (seconds by name) while the block is open."""
-    targets = [  # (module, function, span)
-        (phost, "dispatch_compress", "dispatch_compress"),
-        (route, "host_blocks", "dispatch_compress.route_detect"),
-        (route, "stage", "dispatch_compress.copy_in"),
-        (route, "block_encoder", "dispatch_compress.launch"),
-        (route, "native_streams_for", "dispatch_compress.native_encode"),
-        (phost, "assemble_compress", "assemble_compress"),
-        (phost, "dispatch_uncompress", "dispatch_uncompress"),
-        (ohost, "stage", "dispatch_uncompress.copy_in"),
-        (ohost, "rows_from_span", "dispatch_uncompress.pack"),
-        (phost, "block_decoder", "dispatch_uncompress.launch"),
-        (phost, "assemble_uncompress_array", "assemble_uncompress"),
-        (framed, "verify_crcs", "assemble_uncompress.crc"),
-    ]
-    if torch.device(device).type == "cuda":
-        # A CPU tensor's HostCopy has no event and waits for nothing.
-        targets.append((ohost.HostCopy, "wait", "wait"))
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
-    active = []  # the timed calls open now, innermost last
-
-    def timing(span, fn):
-        def run(*args, **kw):
-            # A wait counts under the assemble that waits.
-            name = f"{active[-1]}.wait" if span == "wait" and active else span
-            active.append(name)
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kw)
-            finally:
-                spans[name] += time.perf_counter() - t0
-                active.pop()
-
-        return run
-
-    def timing_launch(span, select):
-        # block_encoder and block_decoder return the wrapper that launches.
-        return lambda device, *a: timing(span, select(device, *a))
-
-    try:
-        for mod, name, span in targets:
-            fn = getattr(mod, name)
-            setattr(mod, name, timing_launch(span, fn) if name.startswith("block_") else timing(span, fn))
-        yield spans
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
+# The names the stages are printed under, by span: a top-level call (the
+# outermost span of its request), and a stage beneath one, printed as
+# "<call>.<stage>"; any other span keeps its own name.
+TOP = {
+    "framed.dispatch_compress": "dispatch_compress",
+    "framed.assemble_compress": "assemble_compress",
+    "framed.dispatch_uncompress": "dispatch_uncompress",
+    "framed.assemble_uncompress": "assemble_uncompress",
+    "stream.read": "read",
+    "stream.write": "write",
+}
+STAGE = {
+    "route.detect": "route_detect",
+    "route.native_encode": "native_encode",
+    "host.stage": "copy_in",
+    "host.pack": "pack",
+    "k1.decode_blocks": "launch",
+    "k2.encode_blocks": "launch",
+    "framed.crc": "crc",
+    "host.wait": "wait",
+}
+COUNTERS = ("route.host_blocks", "route.device_blocks", "host.staged_bytes", "framed.crc_bytes", "trace.spans_dropped")
 
 
-class TimedIO(io.BytesIO):
-    """A BytesIO whose reads and writes add their host time to ``spans``
-    (``read``, ``write``): the pipeline's I/O, inside the rest of its wall
-    time."""
-
-    def __init__(self, spans: dict, initial: bytes = b""):
-        super().__init__(initial)
-        self.spans = spans
-
-    def read(self, *args):
-        t0 = time.perf_counter()
-        try:
-            return super().read(*args)
-        finally:
-            self.spans["read"] += time.perf_counter() - t0
-
-    def write(self, b):
-        t0 = time.perf_counter()
-        try:
-            return super().write(b)
-        finally:
-            self.spans["write"] += time.perf_counter() - t0
+def stage_seconds(spans: list) -> tuple[dict, float]:
+    """The recorded ``spans`` of one run as (self seconds by stage name,
+    seconds inside the dispatch and assemble calls)."""
+    by_id = {s.id: s for s in spans}
+    stages: dict = defaultdict(float)
+    calls = 0.0
+    for s in spans:
+        top = TOP.get(by_id[s.request].name, by_id[s.request].name) if s.request in by_id else s.name
+        name = top if s.id == s.request else f"{top}.{STAGE.get(s.name, s.name)}"
+        stages[name] += profiling.self_ns(s) / 1e9
+        if s.id == s.request and top.startswith(("dispatch_", "assemble_")):
+            calls += (s.end_ns - s.start_ns) / 1e9
+    return dict(stages), calls
 
 
 def profile(raw: bytes, blocks_per_frame: int, device) -> list[dict]:
@@ -171,60 +142,70 @@ def profile(raw: bytes, blocks_per_frame: int, device) -> list[dict]:
         if cuda:
             torch.cuda.synchronize()
 
-    def pipelined_compress(spans):
-        dst = TimedIO(spans)
-        streaming.compress_stream(TimedIO(spans, raw), dst, device=device, blocks_per_frame=blocks_per_frame)
+    def pipelined_compress():
+        dst = io.BytesIO()
+        streaming.compress_stream(io.BytesIO(raw), dst, device=device, blocks_per_frame=blocks_per_frame)
         return dst
 
     def serial_compress():
         return [parallel.compress_framed(c, device=device) for c in chunks]
 
-    def pipelined_uncompress(comp, spans):
-        dst = TimedIO(spans)
-        streaming.uncompress_stream(TimedIO(spans, comp), dst, device=device)
+    def pipelined_uncompress(comp):
+        dst = io.BytesIO()
+        streaming.uncompress_stream(io.BytesIO(comp), dst, device=device)
         return dst
 
     def serial_uncompress(frames):
         return [parallel.uncompress_framed(f, device=device) for f in frames]
 
-    warm = io.BytesIO()
-    streaming.compress_stream(io.BytesIO(chunks[0]), warm, device=device, blocks_per_frame=blocks_per_frame)
-    streaming.uncompress_stream(io.BytesIO(warm.getvalue()), io.BytesIO(), device=device)
-
     records, comp, frames = [], None, None
-    for mode in ("pipelined", "serial", "serial", "pipelined"):
-        for direction in ("compress", "uncompress"):
-            spans: dict = defaultdict(float)
-            sync()
-            with timed_stages(device, spans):
+    with profiling.recording():
+        warm = io.BytesIO()
+        streaming.compress_stream(io.BytesIO(chunks[0]), warm, device=device, blocks_per_frame=blocks_per_frame)
+        streaming.uncompress_stream(io.BytesIO(warm.getvalue()), io.BytesIO(), device=device)
+        for mode in ("pipelined", "serial", "serial", "pipelined"):
+            for direction in ("compress", "uncompress"):
+                sync()
+                before = profiling.counters()
+                start_ns = time.time_ns()
                 t0 = time.perf_counter()
                 if direction == "compress":
-                    got = pipelined_compress(spans) if mode == "pipelined" else serial_compress()
+                    got = pipelined_compress() if mode == "pipelined" else serial_compress()
                 else:
-                    got = pipelined_uncompress(comp, spans) if mode == "pipelined" else serial_uncompress(frames)
+                    got = pipelined_uncompress(comp) if mode == "pipelined" else serial_uncompress(frames)
                 wall = time.perf_counter() - t0
-            got = got.getvalue() if mode == "pipelined" else b"".join(got)
-            if direction == "compress":
-                if comp is None:
-                    comp = got
-                    frames = list(streaming.iter_frames(io.BytesIO(comp)))
-                if got != comp:
-                    raise RuntimeError(f"{mode} compress gave other bytes than the first run")
-            elif got != raw:
-                raise RuntimeError(f"{mode} uncompress is not bit-exact")
-            dispatch = spans[f"dispatch_{direction}"]
-            assemble = spans[f"assemble_{direction}"]
-            records.append({
-                "mode": mode,
-                "direction": direction,
-                "bytes": len(raw),
-                "frames": len(chunks),
-                "seconds": wall,
-                "gbps": len(raw) / wall / 1e9,
-                "spans": dict(spans),
-                "io_and_rest": wall - dispatch - assemble,
-            })
+                moved = profiling.since(before)
+                spans, calls = stage_seconds([s for s in profiling.spans() if s.start_ns >= start_ns])
+                got = got.getvalue() if mode == "pipelined" else b"".join(got)
+                if direction == "compress":
+                    if comp is None:
+                        comp = got
+                        frames = list(streaming.iter_frames(io.BytesIO(comp)))
+                    if got != comp:
+                        raise RuntimeError(f"{mode} compress gave other bytes than the first run")
+                elif got != raw:
+                    raise RuntimeError(f"{mode} uncompress is not bit-exact")
+                records.append({
+                    "mode": mode,
+                    "direction": direction,
+                    "bytes": len(raw),
+                    "frames": len(chunks),
+                    "seconds": wall,
+                    "gbps": len(raw) / wall / 1e9,
+                    "spans": spans,
+                    "counters": {k: moved[k] for k in COUNTERS},
+                    "io_and_rest": wall - calls,
+                })
     return records
+
+
+def loader() -> dict:
+    """The kernel loader's spans recorded in this process (ms, summed):
+    its slow path (``kernels.load``) and the nvcc builds in it
+    (``kernels.build``); nothing where no kernel was loaded while spans
+    recorded."""
+    return {name: sum(s.end_ns - s.start_ns for s in profiling.spans(name)) / 1e6
+            for name in ("kernels.load", "kernels.build")}
 
 
 def fetch_choice(raw: bytes, blocks_per_frame: int, device, turns: int = 5) -> dict:
@@ -283,8 +264,10 @@ def busy_share(comp: bytes, device, logdir: str) -> dict:
 
 def line(r: dict) -> str:
     spans = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in sorted(r["spans"].items()))
+    counters = ", ".join(f"{k} {v}" for k, v in r["counters"].items())
     return (f"{r['direction']:10s} {r['mode']:9s} {r['seconds']:.4f} s ({r['gbps']:.4f} GB/s), "
-            f"{r['frames']} frames; ms: {spans}; reads, writes and the rest {r['io_and_rest'] * 1e3:.1f}")
+            f"{r['frames']} frames; self ms: {spans}; reads, writes and the rest {r['io_and_rest'] * 1e3:.1f}; "
+            f"counters: {counters}")
 
 
 def main(argv=None) -> int:
@@ -304,6 +287,9 @@ def main(argv=None) -> int:
     records = profile(raw, args.blocks_per_frame, args.device)
     for r in records:
         print(line(r), flush=True)
+    load = loader()
+    print(f"kernel loader: kernels.load {load['kernels.load']:.1f} ms, of it kernels.build (nvcc) "
+          f"{load['kernels.build']:.1f} ms", flush=True)
     fetch = fetch_choice(raw, args.blocks_per_frame, args.device)
     print(f"encoded frame's results back, {fetch['rows']} rows: whole rows {fetch['whole_rows_ms']:.3f} ms "
           f"({fetch['whole_rows_bytes']} bytes), lengths first {fetch['lengths_first_ms']:.3f} ms "
@@ -314,7 +300,7 @@ def main(argv=None) -> int:
         busy = busy_share(comp.getvalue(), args.device, tmp)
     print(f"uncompress_stream under profile_to: {busy['seconds']:.4f} s, the card busy {busy['device_busy_s']:.4f} s "
           f"({busy['busy_share']:.4f}; {busy['kernels']} kernels, {busy['copies']} copies)", flush=True)
-    print(json.dumps({"profile_stream": records, "fetch": fetch, "busy": busy}), flush=True)
+    print(json.dumps({"profile_stream": records, "loader": load, "fetch": fetch, "busy": busy}), flush=True)
     return 0
 
 

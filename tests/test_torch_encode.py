@@ -21,6 +21,7 @@ from snappy_tpu.ops import pallas_encode
 from snappy_tpu_torch.core import varint
 from snappy_tpu_torch.ops import cuda_decode, cuda_encode, encode_torch, select
 from snappy_tpu_torch.ops.encode_torch import BLOCK_MAX_OUT, ENC_PAD
+from snappy_tpu_torch.utils import profiling
 
 from conftest import read_testdata
 
@@ -109,10 +110,10 @@ def test_cpu_tensors_take_the_plain_version():
     blocks = torch.zeros((2, 64 + ENC_PAD), dtype=torch.uint8)
     blocks[0, :64] = torch.from_numpy(np.frombuffer(b"abcd" * 16, np.uint8).copy())
     blens = torch.tensor([64, 0], dtype=torch.int32)
-    before = cuda_encode.launches
+    before = profiling.counters()
     out, olens = cuda_encode.encode_blocks(blocks, blens, 2)
     ref = encode_torch.encode_blocks(blocks, blens, 2)
-    assert cuda_encode.launches == before
+    assert profiling.since(before)["k2.launches"] == 0
     assert torch.equal(out, ref[0]) and torch.equal(olens, ref[1])
     assert out.dtype == torch.uint8 and out.shape == (2, BLOCK_MAX_OUT) and olens.dtype == torch.int32
     assert olens.tolist() == [8, 0]  # literal "abcd" (5 bytes), COPY_2 of 60 at distance 4

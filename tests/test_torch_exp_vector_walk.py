@@ -34,8 +34,14 @@ from snappy_tpu_torch.ops import cuda_probes, kernels
 from snappy_tpu_torch.ops import probes_torch as pt
 from snappy_tpu_torch.tools import exp_vector_walk as tool
 from snappy_tpu_torch.tools.exp_vector_walk import drain_inputs, when_inputs
+from snappy_tpu_torch.utils import profiling
 
 SCRIPT = os.path.join(os.path.dirname(__file__), "..", "benchmarks", "exp_vector_walk.py")
+
+
+def probe_launches(moved) -> dict:
+    """The probe kernels' launch counters that moved (``profiling.since``)."""
+    return {k: n for k, n in moved.items() if k.startswith("probe.") and n}
 
 
 class _Interpreted:
@@ -253,7 +259,7 @@ def test_tool_builds_the_scripts_probes(cpu_probes):
     assert all(p.gate == p.hi for p in ps.values() if p.kernel not in ("chain", "scalar_loop"))
     assert all(p.gate < p.lo for p in ps.values() if p.kernel in ("chain", "scalar_loop"))
     assert len(ps) == 7 + 2 + 3 + 8 + 3
-    assert {p.kernel for p in ps.values()} == set(cuda_probes.launches)
+    assert {p.kernel for p in ps.values()} == set(cuda_probes.KERNELS)
     assert [(p.lo, p.hi) for p in ps.values() if p.kernel == "chain"] == [(200_000, 1_000_000)] * 7
     assert (ps["P2 walk8 row-lockstep"].lo, ps["P2 walk8 row-lockstep"].hi) == (pt.R_ROWS // 2, pt.R_ROWS)
     assert (ps["P4 drain serial"].lo, ps["P4 drain serial"].hi) == (pt.NREC // 4, pt.NREC)
@@ -275,14 +281,14 @@ def test_tool_counts_the_tags_the_walks_take(cpu_probes):
     assert p2.steps(0) == (0, 0)
 
 
-@pytest.mark.parametrize("kernel", sorted(cuda_probes.launches))
+@pytest.mark.parametrize("kernel", sorted(cuda_probes.KERNELS))
 def test_wrappers_take_the_plain_version_on_the_cpu(cpu_probes, kernel):
     """On CPU tensors each wrapper is its plain version and launches
     nothing; the gate holds it against the plain version as it holds the
     kernel on the card (here at a small knob: on the CPU the wrapper is the
     plain version, and P6's high knob is 262,144 records)."""
     p = next(p for p in cpu_probes.values() if p.kernel == kernel)
-    before = dict(cuda_probes.launches)
+    before = profiling.counters()
     small = dataclasses.replace(p, gate=min(p.gate, 64))
     got = tool.gate(small) if kernel not in ("walk8", "walk_scalar") else None
     assert got is None or (got["max_abs_err"] == 0 and got["plain_knob"] == small.gate and got["kernel_ms"] > 0)
@@ -290,7 +296,7 @@ def test_wrappers_take_the_plain_version_on_the_cpu(cpu_probes, kernel):
     a, b = p.fn(knob, *p.args), p.plain(knob, *p.args)
     for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
         assert torch.equal(x, y)
-    assert cuda_probes.launches == before
+    assert not probe_launches(profiling.since(before))
     with pytest.raises(ValueError, match="on the card"):
         p.fn(knob, *p.args, cycles=torch.zeros(1, dtype=torch.int64))
 
@@ -390,9 +396,9 @@ def test_l2_read_on_the_cpu_is_the_xor():
     x = torch.from_numpy(np.random.default_rng(3).integers(-(1 << 31), 1 << 31, 2 * cuda_probes.READ_TILE)
                          .astype(np.int32))
     want = int(np.bitwise_xor.reduce(x.numpy()))
-    before = dict(cuda_probes.launches)
+    before = profiling.counters()
     assert cuda_probes.l2_read(x).tolist() == [want] == pt.xor_words(x).tolist()
-    assert cuda_probes.launches == before
+    assert not probe_launches(profiling.since(before))
     assert pt.xor_words(x[:3]).tolist() == [int(np.bitwise_xor.reduce(x[:3].numpy()))]
     with pytest.raises(TypeError):
         cuda_probes.l2_read(x[:1000])
