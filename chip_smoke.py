@@ -43,7 +43,11 @@ non-zero:
               path, with the encoder's launch counter read just before and
               just after; the frame must decode through the port's CUDA
               decoder and the native one, and equal the frame built from the
-              plain version's rows and the routed blocks' native streams
+              plain version's rows and the routed blocks' native streams;
+              then the mix's device rows cut to 32 KiB (the encoder's
+              narrow variant, two blocks an SM), a batch of them against the
+              plain version, and the encoder's shared memory a block and
+              blocks an SM at both row widths
   9. density and raw  every corpus file of the density gate encodes no
               larger than the native greedy encoder; compress(backend=
               "torch", device="cuda") of the 64 MiB stream and raw_to_frame of
@@ -208,6 +212,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 BLOCK = 1 << 16
 ANY = object()  # a case whose result only has to agree between kernel and plain version
 MAIN_BYTES = 64 << 20
+# Rows of 32 KiB that phase 8 holds against the plain version.
+NARROW_ROWS = 512
 # The reference's large config, bench.py's stream_large stage at its full
 # size (BENCH_STREAM_BYTES), in frames of bench.py's BATCH blocks.
 STREAM_BYTES = 676_000_000
@@ -1192,6 +1198,23 @@ def main() -> int:
     check(framed.build_frame(streams_w, raws, len(raw_main)) == frame_w,
           "the written frame is not the plain version's blocks and the routed blocks' native streams")
     del p_out, k_out
+    # The 32 KiB variant: the mix's device rows cut to 32 KiB blocks, a batch
+    # of them held against the plain version byte for byte.
+    n32 = 1 << 15
+    buf32, blens32 = blockify(np.frombuffer(raw_main, np.uint8), n32)
+    dev32 = np.setdiff1d(np.arange(len(blens32)), route.host_blocks(buf32, blens32))[:NARROW_ROWS]
+    b32 = torch.from_numpy(buf32[dev32]).to(dev)
+    l32 = torch.from_numpy(blens32[dev32]).to(dev)
+    k32 = cuda_encode.encode_blocks(b32, l32, 2)
+    p32 = encode_torch.encode_blocks(b32, l32, 2)
+    check(torch.equal(k32[0], p32[0]) and torch.equal(k32[1], p32[1]),
+          "encode kernel and plain version differ on 32 KiB rows")
+    occ = {w: cuda_encode.occupancy(w) for w in (n32 + ENC_PAD, BLOCK + ENC_PAD)}
+    check(occ[n32 + ENC_PAD][1] == 2 and occ[BLOCK + ENC_PAD][1] == 1,
+          f"the encoder's blocks an SM by row width {occ}: want 2 for 32 KiB rows, 1 for 64 KiB")
+    del k32, p32
+    print(f"[8 write slice] {len(dev32)} device rows of the mix cut to 32 KiB: identical to the plain version; "
+          f"the encoder's (shared memory a block, blocks an SM) by row width: {occ}", flush=True)
     print(f"[8 write slice] 64 MiB corpus mix, {len(blens)} blocks: {len(host_idx)} routed to the host, "
           f"{len(dev_idx)} on the card (all {len(dev_idx)} held against the plain version: identical); "
           f"frame {len(frame_w)} bytes, decodes through the CUDA and native decoders; encode kernel "

@@ -1,4 +1,5 @@
-// Snappy block encoder for Hopper (sm_90a): one thread block per 64 KiB block.
+// Snappy block encoder for Hopper (sm_90a): one thread block per block of
+// up to 64 KiB, in one of two variants sized by the batch's row width.
 //
 // Replaces snappy_tpu/ops/pallas_encode.py::_encode_kernel (with its XLA
 // prepass candidate_cmds), run with contest=False. It keeps that kernel's
@@ -18,12 +19,12 @@
 //
 // What bounds it on the card: the parse. Each take depends on where the
 // previous copy ended, so a block is one dependent chain through its
-// takes, several thousand for a text block; and the 224 KiB of shared
-// memory a block needs leaves one block per SM, so a block's latency is
-// the kernel's time divided by its waves. One thread on a chain runs
-// every instruction of it alone, each after the one it waits for, so the
-// design keeps as few instructions on the chain as the TPU kernel keeps
-// (take_step, pallas_encode.py:514-597):
+// takes, several thousand for a text block; and the shared memory a block
+// needs leaves one block (64 KiB rows) or two (32 KiB rows) an SM, so a
+// block's latency is the kernel's time divided by its waves. One thread on
+// a chain runs every instruction of it alone, each after the one it waits
+// for, so the design keeps as few instructions on the chain as the TPU
+// kernel keeps (take_step, pallas_encode.py:514-597):
 //   - the candidate pass (all threads) leaves beside each position a 4-bit
 //     take field: 0 for no take, else a take bit and the match length 4..8
 //     (exact below 8, as candidate_cmds keeps it);
@@ -44,45 +45,52 @@
 // The hash chain (one warp) and the candidate pass keep their design; they
 // are the next redesign.
 //
-// Shared memory, 232,432 bytes of the 232,448 a block may have:
-//   row    u8[65552]   the block, zero from blen on
-//   link   u16[65536]  first the hash chain (the previous position with the
-//                      same 14-bit hash), then each position's take
-//                      distance (0: no take)
-//   head   u16[16384]  the newest position of each hash, while the chain is
-//                      built; then the 4-bit take fields, 8 to a 32-bit
-//                      word, the first position's in the top bits
-//   rec    u32x2[376]  the records of one chunk: position | length << 16,
-//                      from the chase; output position, from the scan
-//   ctl    i32[8]      the chunk's record count, its first literal's start,
-//                      the end of the chase, the tail literal's start, the
-//                      next record's output position
+// Shared memory of a variant for blocks of up to kMaxBlock = 2^kBlockBits
+// bytes (232,432 bytes at 64 KiB, of the 232,448 a block may have;
+// 115,696 at 32 KiB, so that two blocks and their 1 KiB reserves fit the
+// SM's 233,472):
+//   row    u8[kMaxBlock + 16]  the block, zero from blen on
+//   link   u16[kMaxBlock]      first the hash chain (the previous position
+//                              with the same hash of kBlockBits - 2 bits),
+//                              then each position's take distance (0: no
+//                              take)
+//   head   u16[kMaxBlock / 4]  the newest position of each hash, while the
+//                              chain is built; then the 4-bit take fields,
+//                              8 to a 32-bit word, the first position's in
+//                              the top bits
+//   rec    u32x2[kChunk]       the records of one chunk: position | length
+//                              << 16, from the chase; output position, from
+//                              the scan
+//   ctl    i32[8]              the chunk's record count, its first
+//                              literal's start, the end of the chase, the
+//                              tail literal's start, the next record's
+//                              output position
 // Why these fields and not a 1-bit take map beside recomputed lengths: the
-// fields fill exactly the 32 KiB the chain's heads leave, and they keep
-// the short length on the chased position, so the chain is one load a take
-// instead of three (map, distance, row compare). A device-memory record
-// buffer would cost a round trip to L2 a record in the drains; the records
-// fit the 3 KiB left over, at the price of a drain every 376 takes.
-// Candidates are exact: a chain is walked comparing full keys, so a chain
-// of colliding keys makes a position slow, never wrong.
+// fields fill exactly the heads' region, and they keep the short length on
+// the chased position, so the chain is one load a take instead of three
+// (map, distance, row compare). A device-memory record buffer would cost a
+// round trip to L2 a record in the drains; the records fit what the SM has
+// left, at the price of a drain every kChunk takes (376 at 64 KiB, 120 at
+// 32 KiB). Candidates are exact: a chain is walked comparing full keys, so
+// the hash's width never changes the output, and a chain of colliding keys
+// makes a position slow, never wrong.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+// Threads a block, for every variant; 0 keeps each variant's own.
 #ifndef SNAPPY_ENC_THREADS
-#define SNAPPY_ENC_THREADS 1024
+#define SNAPPY_ENC_THREADS 0
 #endif
 
-constexpr int kThreads = SNAPPY_ENC_THREADS;
 constexpr int kWarp = 32;
-constexpr int kWarps = kThreads / kWarp;
 constexpr uint32_t kFull = 0xFFFFFFFFu;
 constexpr int64_t kEncPad = 8;
-constexpr int64_t kMaxBlock = 1 << 16;
-constexpr int64_t kBlockMaxOut = 32 + kMaxBlock + kMaxBlock / 6;
-constexpr int kHashBits = 14;
+// The widest block the encoder takes: copy offsets are 16 bits.
+constexpr int kWidestBits = 16;
+constexpr int64_t kBlockMaxOut = 32 + (int64_t(1) << kWidestBits) + (int64_t(1) << kWidestBits) / 6;
 constexpr uint32_t kHashMul = 0x1E35A7BDu;
 constexpr uint32_t kSentinel = 0xFFFFFFFFu;
 constexpr uint16_t kNone = 0xFFFF;
@@ -94,17 +102,51 @@ constexpr uint32_t kCopy1MaxDistance = 2048;
 // less 4; 0 for no take. kTakeBits holds bit 3 of each field of a word.
 constexpr uint32_t kTake = 8;
 constexpr uint32_t kTakeBits = 0x88888888u;
-// Records of one chunk of the chase.
-constexpr int kChunk = 376;
-constexpr int64_t kRowBytes = kMaxBlock + 16;
-constexpr int64_t kLinkBytes = 2 * kMaxBlock;
-constexpr int64_t kHeadBytes = 2 * (int64_t(1) << kHashBits);
-constexpr int64_t kRecBytes = 8 * int64_t(kChunk);
-constexpr int64_t kCtlBytes = 4 * 8;
-constexpr int64_t kSmemBytes = kRowBytes + kLinkBytes + kHeadBytes + kRecBytes + kCtlBytes;
-static_assert(2 * kHeadBytes == kMaxBlock, "the heads' region holds one 4-bit field a position");
-static_assert(kSmemBytes <= 232448, "more shared memory than a Hopper block may have");
-static_assert(kThreads % kWarp == 0 && kWarps >= 1, "whole warps");
+// Shared memory an SM has, and what the card reserves a block of it.
+constexpr int64_t kSmemPerSm = 233472;
+constexpr int64_t kSmemReserved = 1024;
+constexpr int64_t kSmemPerBlockMax = 232448;
+
+// Each variant's knobs: threads a block, blocks an SM must hold (the
+// launch bounds), records of one chunk of the chase.
+template <int kBlockBits>
+struct Knobs;
+template <>
+struct Knobs<16> {
+  static constexpr int kThreads = 1024, kBlocksPerSm = 1, kChunk = 376;
+};
+template <>
+struct Knobs<15> {
+  static constexpr int kThreads = 1024, kBlocksPerSm = 2, kChunk = 120;
+};
+
+// The layout of the variant for blocks of up to 2^kBlockBits bytes.
+template <int kBlockBits>
+struct Shape {
+  static constexpr int kThreads = SNAPPY_ENC_THREADS ? SNAPPY_ENC_THREADS : Knobs<kBlockBits>::kThreads;
+  static constexpr int kWarps = kThreads / kWarp;
+  static constexpr int kBlocksPerSm = Knobs<kBlockBits>::kBlocksPerSm;
+  static constexpr int kChunk = Knobs<kBlockBits>::kChunk;
+  static constexpr int64_t kMaxBlock = int64_t(1) << kBlockBits;
+  // Two bits fewer than a position, so that the heads' region holds one
+  // 4-bit field a position.
+  static constexpr int kHashBits = kBlockBits - 2;
+  static constexpr int64_t kRowBytes = kMaxBlock + 16;
+  static constexpr int64_t kLinkBytes = 2 * kMaxBlock;
+  static constexpr int64_t kHeadBytes = 2 * (int64_t(1) << kHashBits);
+  static constexpr int64_t kRecBytes = 8 * int64_t(kChunk);
+  static constexpr int64_t kCtlBytes = 4 * 8;
+  static constexpr int64_t kSmemBytes = kRowBytes + kLinkBytes + kHeadBytes + kRecBytes + kCtlBytes;
+  static_assert(kBlockBits <= kWidestBits, "copy offsets are 16 bits");
+  static_assert(2 * kHeadBytes == kMaxBlock, "the heads' region holds one 4-bit field a position");
+  static_assert(kSmemBytes <= kSmemPerBlockMax, "more shared memory than a Hopper block may have");
+  static_assert(kBlocksPerSm * (kSmemBytes + kSmemReserved) <= kSmemPerSm, "the SM does not hold the blocks");
+  static_assert(kThreads % kWarp == 0 && kWarps >= 1, "whole warps");
+};
+
+// The narrowest variant that holds rows of row_w bytes (row_w - kEncPad
+// bytes of block): 32 KiB blocks or 64 KiB.
+inline int block_bits_for(int64_t row_w) { return row_w - kEncPad <= (int64_t(1) << 15) ? 15 : 16; }
 
 __device__ __forceinline__ uint32_t load32(const uint8_t* row, int64_t p) {
   return uint32_t(row[p]) | (uint32_t(row[p + 1]) << 8) | (uint32_t(row[p + 2]) << 16) |
@@ -271,10 +313,20 @@ __device__ __forceinline__ void emit_copy(uint8_t* dst, uint32_t d, uint32_t m, 
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// A variant that must hold two blocks an SM bounds its registers to half
+// the SM's (32 a thread at 1,024 threads). One block an SM states no
+// minimum (0): the compiler's own budget is 32 registers, where a minimum
+// of 1 lets it take 56 and runs the 64 KiB rows 0.5% slower.
+template <int kBlockBits>
+__global__ void __launch_bounds__(Shape<kBlockBits>::kThreads,
+                                  Shape<kBlockBits>::kBlocksPerSm > 1 ? Shape<kBlockBits>::kBlocksPerSm : 0)
 encode_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict__ blens,
                      int64_t row_w, int64_t out_w, int min_profit, uint8_t* __restrict__ out,
                      int32_t* __restrict__ olens) {
+  using S = Shape<kBlockBits>;
+  constexpr int kThreads = S::kThreads, kWarps = S::kWarps, kHashBits = S::kHashBits, kChunk = S::kChunk;
+  constexpr int64_t kMaxBlock = S::kMaxBlock, kRowBytes = S::kRowBytes, kLinkBytes = S::kLinkBytes;
+  constexpr int64_t kHeadBytes = S::kHeadBytes;
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* row = smem;
   uint16_t* link = reinterpret_cast<uint16_t*>(smem + kRowBytes);
@@ -460,23 +512,61 @@ encode_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restri
 
 extern "C" {
 
+using KernelFn = void (*)(const uint8_t*, const int32_t*, int64_t, int64_t, int, uint8_t*, int32_t*);
+
+// The variant for rows of row_w bytes: its kernel, the shared memory a
+// block takes and its threads; cudaErrorInvalidValue for a width the
+// encoder does not take. A variant's attributes (its shared memory, the
+// carveout that fits its blocks an SM) are set once a device.
+static cudaError_t pick(int64_t row_w, KernelFn* kernel, int64_t* smem, int* threads) {
+  static unsigned long long ready[2];  // a bit a device, for 32 KiB and 64 KiB
+  if (row_w < kEncPad || row_w - kEncPad > (int64_t(1) << kWidestBits)) return cudaErrorInvalidValue;
+  const bool narrow = block_bits_for(row_w) == 15;
+  *kernel = narrow ? encode_blocks_kernel<15> : encode_blocks_kernel<16>;
+  *smem = narrow ? Shape<15>::kSmemBytes : Shape<16>::kSmemBytes;
+  *threads = narrow ? Shape<15>::kThreads : Shape<16>::kThreads;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (__atomic_load_n(&ready[narrow], __ATOMIC_ACQUIRE) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(*smem));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(*kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               int(cudaSharedmemCarveoutMaxShared));
+  }
+  if (err == cudaSuccess) __atomic_fetch_or(&ready[narrow], bit, __ATOMIC_ACQ_REL);
+  return err;
+}
+
 // Launch the encoder over B rows on `stream`. Returns the cudaError_t of the
 // launch (0 on success); does not synchronise.
 int snappy_cuda_encode_blocks(const void* blocks, const void* blens, int64_t rows, int64_t row_w,
                               int64_t out_w, int min_profit, void* out, void* olens,
                               void* stream) {
   if (rows <= 0) return cudaSuccess;
-  if (row_w < kEncPad || row_w - kEncPad > kMaxBlock || out_w < kBlockMaxOut) {
-    return cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      encode_blocks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kSmemBytes));
+  if (out_w < kBlockMaxOut) return cudaErrorInvalidValue;
+  KernelFn kernel;
+  int64_t smem;
+  int threads;
+  cudaError_t err = pick(row_w, &kernel, &smem, &threads);
   if (err != cudaSuccess) return err;
-  encode_blocks_kernel<<<dim3(unsigned(rows)), kThreads, size_t(kSmemBytes),
-                         static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(unsigned(rows)), threads, size_t(smem), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(blocks), static_cast<const int32_t*>(blens), row_w, out_w,
       min_profit, static_cast<uint8_t*>(out), static_cast<int32_t*>(olens));
   return cudaGetLastError();
+}
+
+// The shared memory a block of the variant for rows of row_w bytes takes,
+// and how many of its blocks one SM of the current device holds at once.
+int snappy_cuda_encode_blocks_occupancy(int64_t row_w, int* smem_bytes, int* blocks_per_sm) {
+  KernelFn kernel;
+  int64_t smem;
+  int threads;
+  cudaError_t err = pick(row_w, &kernel, &smem, &threads);
+  if (err != cudaSuccess) return err;
+  *smem_bytes = int(smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads, size_t(smem));
 }
 
 }  // extern "C"

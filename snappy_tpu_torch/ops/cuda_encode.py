@@ -14,9 +14,19 @@ are not read on the host: a row with ``blens`` outside [0, W - ENC_PAD]
 comes back with ``olens = -1``, all zero. A CPU tensor with such a row
 raises; otherwise it goes to the plain version,
 ``encode_torch.encode_blocks``. No other device is taken.
+
+The kernel comes in two variants, picked by the launch from the row width:
+rows of up to 32 KiB of block take a layout half the size, two blocks an
+SM; wider rows one block an SM (``occupancy`` gives a width's shared memory
+a block and blocks an SM). A CUDA launch counts its rows under ``k2.rows``
+and, each weighted by the blocks an SM of its variant, under
+``k2.sm_rows``.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -69,7 +79,8 @@ def launch(blocks: torch.Tensor, blens: torch.Tensor, min_profit: int):
 
 def encode_blocks(blocks: torch.Tensor, blens: torch.Tensor, min_profit: int):
     """Encode B blocks into headerless tag streams; see the module
-    docstring. A CUDA launch counts under ``k2.launches``."""
+    docstring. A CUDA launch counts under ``k2.launches``, ``k2.rows`` and
+    ``k2.sm_rows``."""
     with trace_annotation("k2.encode_blocks"):
         _check_args(blocks, blens, min_profit)
         if blocks.device.type == "cpu":
@@ -77,6 +88,27 @@ def encode_blocks(blocks: torch.Tensor, blens: torch.Tensor, min_profit: int):
         if blocks.device.type != "cuda":
             raise ValueError(f"no block encoder for device {blocks.device}")
         res = launch(blocks, blens, min_profit)
-        if blocks.shape[0]:
+        b, w = blocks.shape
+        if b:
             count("k2.launches")
+            count("k2.rows", b)
+            count("k2.sm_rows", b * _blocks_per_sm(blocks.device.index, w))
         return res
+
+
+def occupancy(row_w: int) -> tuple[int, int]:
+    """(bytes of shared memory a block takes for rows of ``row_w`` bytes,
+    blocks of it one SM of the current card holds at once). Needs a CUDA
+    card."""
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    rc = kernels.load("encode_blocks").snappy_cuda_encode_blocks_occupancy(
+        row_w, ctypes.byref(smem), ctypes.byref(blocks)
+    )
+    kernels.check(rc, "encode_blocks occupancy")
+    return smem.value, blocks.value
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(index: int, row_w: int) -> int:
+    with torch.cuda.device(index):
+        return occupancy(row_w)[1]

@@ -8,26 +8,33 @@ the encoder before it, whose parse was a walk by one warp) into the build
 directory: thread 0 of each block reads ``clock64()`` where each phase
 starts (stage, hash chain, candidates, the chase or walk, the drains, the
 tail and zeroing), counts the takes it parses, and adds its totals to
-device counters. Then, on batches of 64 KiB blocks, it prints the kernel's
+device counters. Then, on batches of 64 KiB and of 32 KiB blocks (the
+encoder's two variants, picked by the row width), it prints the kernel's
 time (CUDA events, median of 5 after a warm-up; the instrumented source's
-own build) and, from the instrumented copy, whose output must equal the
-plain version's on sampled rows and the uninstrumented kernel's on all,
-cycles a block by phase, takes a block and cycles a take. The batches: the
-device rows of ``chip_smoke.py``'s 64 MiB corpus mix (the blocks routing
-leaves on the card), 256 blocks of each of alice29.txt, html, kppkn.gtb
-and fireworks.jpeg, and one and 132 blocks whose 4-byte keys at every
-4th position are distinct and share one 14-bit hash, the encoder's worst
-case (with whether routing would send such a block to the host). The
-counts include each phase's barrier waits. The card's name and power limit
-come first, a ``{"profile_encode": [...]}`` line last. Requires a CUDA
-card and nvcc; ``measure`` and the batches also run on the CPU, through
-the plain version, without cycles.
+own build), the variant's shared memory a block and blocks an SM (this
+package's encoder, ``cuda_encode.occupancy``), and, from the instrumented
+copy, whose output must equal the plain version's on sampled rows and the
+uninstrumented kernel's on all, cycles a block by phase, takes a block
+and cycles a take. The 64 KiB batches: the device
+rows of ``chip_smoke.py``'s 64 MiB corpus mix (the blocks routing leaves
+on the card), 256 blocks of each of alice29.txt, html, kppkn.gtb and
+fireworks.jpeg, and one and 132 blocks whose 4-byte keys at every 4th
+position are distinct and share one 14-bit hash, the encoder's worst case
+(with whether routing would send such a block to the host). The 32 KiB
+batches: the corpus mix cut to 32 KiB (its device rows), 2048 blocks of
+the benchmark's TPC-H ``lineitem`` rows (``perfbench/data/lineitem.py``,
+where the checkout has it), and one and 264 collision blocks whose keys
+share one 13-bit hash. The counts include each phase's barrier waits. The
+card's name and power limit come first, a ``{"profile_encode": [...]}``
+line last. Requires a CUDA card and nvcc; ``measure`` and the batches also
+run on the CPU, through the plain version, without cycles.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import os
 import re
@@ -51,8 +58,15 @@ MIX = [
 ]
 FILES = ["alice29.txt", "html", "kppkn.gtb", "fireworks.jpeg"]
 MIN_PROFIT = 2
-# The encoder's hash: the top 14 bits of key * HASH_MUL, mod 2**32.
-HASH_BITS, HASH_MUL = 14, 0x1E35A7BD
+# The encoder's hash: the top bits of key * HASH_MUL, mod 2**32, two fewer
+# than a position of the variant's blocks has.
+HASH_MUL = 0x1E35A7BD
+
+
+def hash_bits(block_bits: int = 16) -> int:
+    """The hash's width in the variant for blocks of 2**block_bits bytes."""
+    return block_bits - 2
+
 PHASES = ["stage", "chain", "candidates", "chase", "drains", "tail"]
 TOTAL, TAKES = 6, 7
 
@@ -140,25 +154,27 @@ def launch(lib: ctypes.CDLL, blocks: torch.Tensor, blens: torch.Tensor, min_prof
     return out, olens
 
 
-def collision_block(n: int = BLOCK, seed: int = 0, hash_value: int = 0x155) -> bytes:
+def collision_block(n: int = BLOCK, seed: int = 0, hash_value: int = 0x155, bits: int = 14) -> bytes:
     """n bytes whose 4-byte keys at every 4th position are distinct and
-    share one 14-bit hash: every such position's chain holds all the
-    earlier ones, so the candidate pass walks ~n²/32 chain steps. Each key
-    is hash_value's top bits over distinct random low bits, times the
-    inverse of the hash multiplier; none is the sentinel 0xFFFFFFFF, whose
-    hash is 0x3872."""
+    share one hash of ``bits`` bits (``hash_bits`` of the variant): every
+    such position's chain holds all the earlier ones, so the candidate pass
+    walks ~n²/32 chain steps. Each key is hash_value's top bits over
+    distinct random low bits, times the inverse of the hash multiplier;
+    none is the sentinel 0xFFFFFFFF, whose 14-bit hash is 0x3872 (0x1C39 in
+    13 bits)."""
     inv = pow(HASH_MUL, -1, 1 << 32)
     rng = np.random.default_rng(seed)
     k = -(-n // 4)
-    low = rng.choice(1 << (32 - HASH_BITS), size=k, replace=False).astype(np.uint64)
-    y = (np.uint64(hash_value) << np.uint64(32 - HASH_BITS)) | low
+    low = rng.choice(1 << (32 - bits), size=k, replace=False).astype(np.uint64)
+    y = (np.uint64(hash_value) << np.uint64(32 - bits)) | low
     keys = (y * np.uint64(inv)) & np.uint64(0xFFFFFFFF)
     return keys.astype("<u4").tobytes()[:n]
 
 
-def record_chunk(source: Path = kernels.CSRC / "encode_blocks.cu") -> int:
-    """Records of one chunk of the chase, as the encoder source states it."""
-    return int(re.search(r"constexpr int kChunk = (\d+);", source.read_text()).group(1))
+def record_chunk(block_bits: int = 16, source: Path = kernels.CSRC / "encode_blocks.cu") -> int:
+    """Records of one chunk of the chase in the variant for blocks of
+    2**block_bits bytes, as the encoder source states it."""
+    return int(re.search(rf"struct Knobs<{block_bits}> {{[^}}]*kChunk = (\d+);", source.read_text()).group(1))
 
 
 def exact_matches(length: int, far: bool) -> bytes:
@@ -175,13 +191,13 @@ def exact_matches(length: int, far: bool) -> bytes:
     return bytes(data)
 
 
-def literals_across_chunks() -> bytes:
+def literals_across_chunks(block: int = BLOCK) -> bytes:
     """More than two chunks of takes, each after a literal of 1 to 257
     bytes, so that chunks start and end inside literal runs of every tag
-    size; then a long tail literal."""
+    size; then a long tail literal: under ``block`` bytes."""
     rng = np.random.default_rng(12)
     data = bytearray(rng.integers(0, 256, 256, dtype=np.uint8).tobytes())
-    while len(data) < 60000:
+    while len(data) < block - 5536:
         n = int(rng.choice([1, 2, 5, 20, 59, 60, 61, 256, 257], p=[0.2, 0.2, 0.2, 0.15] + [0.05] * 5))
         data += rng.integers(0, 256, n, dtype=np.uint8).tobytes()
         s = int(rng.integers(0, len(data) - 40))
@@ -207,25 +223,27 @@ def takes_exactly(k: int) -> bytes:
     return head + b"".join(rng.integers(0, 256, 4, dtype=np.uint8).tobytes() + head[:12] for _ in range(k))
 
 
-def chase_rows() -> dict[str, bytes]:
-    """Rows that exercise the encoder's chase: more takes than a record
-    chunk, matches of exactly 7, 8 and 9 bytes near and far, 64 KiB runs
-    (a capped length extended to the row's end), a match cut at the row's
-    end inside an 8-byte compare, literals across chunk boundaries, chunks
-    that end exactly full, and colliding keys."""
-    chunk = record_chunk()
-    text = (REPO / "testdata" / "alice29.txt").read_bytes()[:BLOCK]
+def chase_rows(block_bits: int = 16) -> dict[str, bytes]:
+    """Rows that exercise the chase of the encoder's variant for blocks of
+    2**block_bits bytes: more takes than its record chunk, matches of
+    exactly 7, 8 and 9 bytes near and far, whole-block runs (a capped
+    length extended to the row's end), a match cut at the row's end inside
+    an 8-byte compare, literals across chunk boundaries, chunks that end
+    exactly full, and keys that collide in its hash. Named by the block's
+    size (``64k``, ``32k``) where it fills one."""
+    block, chunk, size = 1 << block_bits, record_chunk(block_bits), f"{1 << (block_bits - 10)}k"
+    text = (REPO / "testdata" / "alice29.txt").read_bytes()[:block]
     return {
         "text-more-takes-than-a-chunk": text,
-        "html-64k": (REPO / "testdata" / "html").read_bytes()[:BLOCK],
+        f"html-{size}": (REPO / "testdata" / "html").read_bytes()[:block],
         **{f"match-{n}-{'far' if far else 'near'}": exact_matches(n, far) for n in (7, 8, 9) for far in (False, True)},
-        "rle-64k": b"q" * BLOCK,
-        "zeros-64k": b"\x00" * BLOCK,
-        "period-3-64k": b"abc" * (BLOCK // 3) + b"a",
+        f"rle-{size}": b"q" * block,
+        f"zeros-{size}": b"\x00" * block,
+        f"period-3-{size}": (b"abc" * (block // 3 + 1))[:block],
         "match-cut-at-the-row-end": match_cut_at_the_row_end(),
-        "literals-across-chunks": literals_across_chunks(),
+        "literals-across-chunks": literals_across_chunks(block),
         **{f"{k}-chunks-exactly-full": takes_exactly(k * chunk) for k in (1, 2)},
-        "collision-16k": collision_block(16384),
+        "collision-16k": collision_block(16384, bits=hash_bits(block_bits)),
     }
 
 
@@ -238,22 +256,65 @@ def repeat_to(data: list[bytes], n: int) -> bytes:
     return b"".join(out)[:n]
 
 
+def variant_bits(n: int) -> int:
+    """The variant the launcher picks for blocks of n bytes: 15 (32 KiB)
+    or 16 (64 KiB)."""
+    return 15 if n <= 1 << 15 else 16
+
+
+def _mix(mix_blocks: int, n: int, label: str = "corpus mix") -> dict:
+    """The device rows of the corpus mix in blocks of n bytes."""
+    files = [(REPO / "testdata" / name).read_bytes() for name in MIX]
+    buf, blens = blockify(np.frombuffer(repeat_to(files, mix_blocks * n), np.uint8), n)
+    dev = np.setdiff1d(np.arange(len(blens)), route.host_blocks(buf, blens))
+    return {f"{label}, {len(dev)} device blocks of {len(blens)}": (buf[dev], blens[dev])}
+
+
+def _collisions(collision_rows, n: int, label: str = "collision") -> dict:
+    """Batches of collision blocks of n bytes, whose keys share one hash of
+    the variant that takes them."""
+    one = np.frombuffer(collision_block(n, bits=hash_bits(variant_bits(n))), np.uint8)
+    return {f"{label}, {rows} blocks": blockify(np.tile(one, rows), n) for rows in collision_rows}
+
+
 def batches(mix_blocks: int = 1024, file_blocks: int = 256, collision_rows=(1, 132), n: int = BLOCK) -> dict:
     """{label: (blocks uint8[B, n + ENC_PAD], blens int32[B])}: the device
     rows of the corpus mix, ``file_blocks`` blocks of each file, and the
-    collision rows; plus "routed" under the collision label's key, whether
-    routing sends a collision block to the host."""
-    files = {name: (REPO / "testdata" / name).read_bytes() for name in MIX}
-    buf, blens = blockify(np.frombuffer(repeat_to([files[m] for m in MIX], mix_blocks * n), np.uint8), n)
-    dev = np.setdiff1d(np.arange(len(blens)), route.host_blocks(buf, blens))
-    out = {f"corpus mix, {len(dev)} device blocks of {len(blens)}": (buf[dev], blens[dev])}
+    collision rows."""
+    out = _mix(mix_blocks, n)
     for name in FILES:
-        out[f"{name}, {file_blocks} blocks"] = blockify(np.frombuffer(repeat_to([files[name]], file_blocks * n), np.uint8), n)
-    one = np.frombuffer(collision_block(n), np.uint8)
-    for rows in collision_rows:
-        cb, cl = blockify(np.tile(one, rows), n)
-        out[f"collision, {rows} blocks"] = (cb, cl)
-    return out
+        data = (REPO / "testdata" / name).read_bytes()
+        out[f"{name}, {file_blocks} blocks"] = blockify(np.frombuffer(repeat_to([data], file_blocks * n), np.uint8), n)
+    return {**out, **_collisions(collision_rows, n)}
+
+
+def lineitem_rows(blocks: int, n: int, device=None) -> np.ndarray | None:
+    """``blocks`` blocks of n bytes of the benchmark's shuffle rows (TPC-H
+    ``lineitem`` as Spark serializes them), drawn on ``device`` by
+    ``perfbench/data/lineitem.py`` from its configuration's table seed; None
+    where the checkout has no benchmark."""
+    gen, conf = REPO / "perfbench" / "data" / "lineitem.py", REPO / "perfbench" / "configs" / "shuffle_32k.json"
+    if not (gen.is_file() and conf.is_file()):
+        return None
+    spec = importlib.util.spec_from_file_location("profile_encode_lineitem", gen)
+    lineitem = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(lineitem)
+    config = {**json.loads(conf.read_text()), "block_size": n, "blocks_per_batch": blocks, "resident_batches": 1}
+    table = lineitem.table(config, torch.device("cpu") if device is None else device)
+    return table.cpu().numpy().reshape(-1)
+
+
+def narrow_batches(mix_blocks: int = 2048, lineitem_blocks: int = 2048, collision_rows=(1, 264),
+                   n: int = 1 << 15, device=None) -> dict:
+    """The batches of the 32 KiB variant, as ``batches``: the device rows of
+    the corpus mix cut to n bytes, ``lineitem_blocks`` blocks of the shuffle
+    rows (where the checkout has them), and the collision rows."""
+    size = f"{n // 1024} KiB"
+    out = _mix(mix_blocks, n, f"corpus mix cut to {size}")
+    rows = lineitem_rows(lineitem_blocks, n, device)
+    if rows is not None:
+        out[f"lineitem, {lineitem_blocks} blocks of {size}"] = blockify(rows, n)
+    return {**out, **_collisions(collision_rows, n, f"collision of {size}")}
 
 
 def measure(label: str, blocks: np.ndarray, blens: np.ndarray, dev, libs=None, check_rows: int = 4) -> dict:
@@ -275,8 +336,10 @@ def measure(label: str, blocks: np.ndarray, blens: np.ndarray, dev, libs=None, c
     if not (torch.equal(want[0][pick].cpu(), plain[0]) and torch.equal(want[1][pick].cpu(), plain[1])):
         raise RuntimeError(f"{label}: the encoder differs from its plain version")
     rec["out_bytes"] = int(want[1].sum())
+    rec["variant_bits"] = variant_bits(blocks.shape[1] - encode_torch.ENC_PAD)
     if libs is None:
         return rec
+    rec["smem_bytes"], rec["blocks_per_sm"] = cuda_encode.occupancy(blocks.shape[1])
     layout, probed, timed = libs
     rec["layout"] = layout
     rec["source_ms"] = time_device_fn(lambda *a: launch(timed, *a), args[:2], iters=iters, warmup=1) * 1e3
@@ -305,7 +368,8 @@ def line(r: dict) -> str:
         return s
     total = r["cycles_per_block"]
     shares = ", ".join(f"{k} {v:.0f} ({v / total:.1%})" for k, v in r["phases"].items())
-    s = f"{s}; {r['layout']} source {r['source_ms']:.4f} ms; cycles a block {total:.0f}: {shares}; "
+    s = (f"{s}; {r['layout']} source {r['source_ms']:.4f} ms; the {1 << (r['variant_bits'] - 10)} KiB variant, "
+         f"{r['smem_bytes']} B a block, {r['blocks_per_sm']} an SM; cycles a block {total:.0f}: {shares}; ")
     if not r["takes_per_block"]:
         return s + "no takes"
     return (f"{s}{r['takes_per_block']:.1f} takes a block, {r['chase_cycles_per_take']:.1f} cycles a take in the "
@@ -332,7 +396,7 @@ def main(argv: list[str]) -> int:
     libs = build(opts.source)
     print(f"source {os.path.relpath(opts.source, REPO)}, {libs[0]} layout", flush=True)
     records = []
-    for label, (blocks, blens) in batches().items():
+    for label, (blocks, blens) in {**batches(), **narrow_batches(device=dev)}.items():
         records.append(measure(label, blocks, blens, dev, libs))
         print(line(records[-1]), flush=True)
     print(json.dumps({"profile_encode": records}), flush=True)

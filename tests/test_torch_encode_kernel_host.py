@@ -8,7 +8,11 @@ substitutions, with one ``std::thread`` per thread of a block of 64 (the
 kernel's thread count is a macro; the card runs 1024), a ``std::barrier``
 for ``__syncthreads`` and one per warp for ``__syncwarp``, the warp vote
 ``__match_any_sync`` and the shuffles through a per-warp exchange array,
-and a static buffer for its shared memory.
+and a static buffer for its shared memory. The harness runs the variant
+the launcher picks for the batch's row width (the source's own
+``block_bits_for``), so the tests run at both widths the cells use: 32 KiB
+rows (the 32 KiB layout, 13 hash bits, a chase chunk of its own) and 64 KiB
+rows.
 
 Tolerance: exact. ``out`` and ``olens`` must be identical on every row.
 Rows whose ``blen`` does not fit the batch (which the wrapper reads only
@@ -27,12 +31,22 @@ from snappy_tpu_torch.ops import encode_torch
 from snappy_tpu_torch.ops.encode_torch import BLOCK_MAX_OUT, ENC_PAD
 from snappy_tpu_torch.ops.kernels import CSRC
 
-from snappy_tpu_torch.tools.profile_encode import HASH_BITS, HASH_MUL, chase_rows, collision_block, record_chunk
+from snappy_tpu_torch.tools.profile_encode import HASH_MUL, chase_rows, collision_block, hash_bits, record_chunk
 
 from conftest import read_testdata
 from torch_helpers import plain_takes
 
 GUARD = 64  # canary bytes on each side of the output rows
+# The row widths of the encoder's two variants: 32 KiB and 64 KiB blocks.
+WIDTHS = {15: 32768 + ENC_PAD, 16: 65536 + ENC_PAD}
+
+
+def _by_width(cases):
+    """pytest params of (bits, *case) for each width and each of its
+    ``cases(bits)``; a 32 KiB case's id starts with ``w32k``, a 64 KiB
+    case's is the case's own."""
+    return [pytest.param(bits, *case, id="-".join(["w32k"] * (bits == 15) + [str(c) for c in case]))
+            for bits in WIDTHS for case in cases(bits)]
 
 _PRELUDE = r"""
 #include <barrier>
@@ -44,7 +58,7 @@ _PRELUDE = r"""
 #define __global__
 #define __device__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__ __restrict
 struct alignas(8) uint2 { uint32_t x, y; };
 struct alignas(16) uint4 { uint32_t x, y, z, w; };
@@ -101,13 +115,14 @@ alignas(16) static uint8_t g_smem[1 << 18];
 """
 
 _HARNESS = r"""
-// Run the kernel over `rows` blocks, one block at a time, with kThreads
-// std::threads as its threads. Returns 0, or 1 if the shared memory does
-// not fit the emulated buffer.
-extern "C" int emu_encode_blocks(const uint8_t* blocks, const int32_t* blens, int64_t rows,
-                                 int64_t row_w, int64_t out_w, int min_profit, uint8_t* out,
-                                 int32_t* olens) {
-  if (kSmemBytes > int64_t(sizeof(g_smem))) return 1;
+// Run the variant's kernel over `rows` blocks, one block at a time, with
+// its kThreads std::threads as its threads. Returns 0, or 1 if the shared
+// memory does not fit the emulated buffer.
+template <int kBits>
+static int emu_run(const uint8_t* blocks, const int32_t* blens, int64_t rows, int64_t row_w,
+                   int64_t out_w, int min_profit, uint8_t* out, int32_t* olens) {
+  constexpr int kThreads = Shape<kBits>::kThreads;
+  if (Shape<kBits>::kSmemBytes > int64_t(sizeof(g_smem))) return 1;
   std::barrier<> block_bar(kThreads);
   g_block_bar = &block_bar;
   std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
@@ -121,7 +136,7 @@ extern "C" int emu_encode_blocks(const uint8_t* blocks, const int32_t* blens, in
       threadIdx.x = t;
       for (int64_t r = 0; r < rows; ++r) {
         blockIdx.x = r;
-        encode_blocks_kernel(blocks, blens, row_w, out_w, min_profit, out, olens);
+        encode_blocks_kernel<kBits>(blocks, blens, row_w, out_w, min_profit, out, olens);
         block_bar.arrive_and_wait();
       }
     });
@@ -129,6 +144,20 @@ extern "C" int emu_encode_blocks(const uint8_t* blocks, const int32_t* blens, in
   for (auto& t : threads) t.join();
   return 0;
 }
+
+// The launcher's choice for rows of row_w bytes, run as above.
+extern "C" int emu_encode_blocks(const uint8_t* blocks, const int32_t* blens, int64_t rows,
+                                 int64_t row_w, int64_t out_w, int min_profit, uint8_t* out,
+                                 int32_t* olens) {
+  return block_bits_for(row_w) == 15 ? emu_run<15>(blocks, blens, rows, row_w, out_w, min_profit, out, olens)
+                                     : emu_run<16>(blocks, blens, rows, row_w, out_w, min_profit, out, olens);
+}
+
+// The variant the launcher picks for rows of row_w bytes, and a variant's
+// shared memory a block and records a chunk.
+extern "C" int emu_block_bits(int64_t row_w) { return block_bits_for(row_w); }
+extern "C" int64_t emu_smem_bytes(int bits) { return bits == 15 ? Shape<15>::kSmemBytes : Shape<16>::kSmemBytes; }
+extern "C" int emu_chunk(int bits) { return bits == 15 ? Shape<15>::kChunk : Shape<16>::kChunk; }
 
 // The chase's extension of a match capped at kMCap bytes, on its own.
 extern "C" uint32_t emu_extend(const uint8_t* row, uint32_t a, uint32_t b, uint32_t limit) {
@@ -192,10 +221,10 @@ def emu(emu_lib):
     return emu_lib[0]
 
 
-def _rows():
-    """Seeded rows: corpus slices of every length class, whole 64 KiB
-    corpus blocks, the sentinel and RLE rows, lengths 0-3, a match that
-    reaches the end of the block, and random bytes."""
+def _rows(block: int = 65536):
+    """Seeded rows: corpus slices of every length class, whole corpus
+    blocks, the sentinel and RLE rows, lengths 0-3, a match that reaches
+    the end of the block, and random bytes; none longer than ``block``."""
     rng = np.random.default_rng(3)
     rows = []
     for name in ["html", "alice29.txt", "kppkn.gtb", "geo.protodata", "urls.10K", "fireworks.jpeg"]:
@@ -204,8 +233,8 @@ def _rows():
             n = int(rng.integers(4, 6000))
             s = int(rng.integers(0, len(data) - n))
             rows.append(data[s : s + n])
-    rows += [read_testdata("html")[:65536], read_testdata("sample-tweet.json")[:65536]]
-    rows += [b"\xff" * 65536, b"q" * 65536, b"ab" * 2000, b"abc", b"ab", b"a", b""]
+    rows += [read_testdata("html")[:block], read_testdata("sample-tweet.json")[:block]]
+    rows += [b"\xff" * block, b"q" * block, b"ab" * 2000, b"abc", b"ab", b"a", b""]
     rows += [bytes(range(256)) * 8, b"xyzw" * 5 + b"xyzw12", b"\xff\xff\xff\xff\x01" * 300]
     rows += [rng.integers(0, 256, 3000, dtype=np.uint8).tobytes()]
     rows += [rng.integers(0, 4, 3000, dtype=np.uint8).tobytes()]
@@ -224,9 +253,9 @@ def _plain(blocks, blens, min_profit):
     return out.numpy(), olens.numpy()
 
 
-@pytest.mark.parametrize("min_profit", [2, 1, 0, 3])
-def test_kernel_matches_plain_version(emu, min_profit):
-    blocks, blens = _batch(_rows(), 65536 + ENC_PAD)
+@pytest.mark.parametrize("bits,min_profit", _by_width(lambda bits: [(2,), (1,), (0,), (3,)]))
+def test_kernel_matches_plain_version(emu, bits, min_profit):
+    blocks, blens = _batch(_rows(1 << bits), WIDTHS[bits])
     out, olens = emu(blocks, blens, min_profit)
     p_out, p_olens = _plain(blocks, blens, min_profit)
     np.testing.assert_array_equal(olens, p_olens)
@@ -252,45 +281,52 @@ def test_bytes_past_blen_read_as_zero(emu):
 def test_kernel_refuses_lengths_outside_the_batch(emu):
     """Lengths the CUDA wrapper does not read on the host: the kernel's own
     guard turns such a row into olens = -1 and an all-zero row; the rows
-    around it encode as usual."""
+    around it encode as usual, in either variant: a narrow batch and the
+    widths of both."""
     text = read_testdata("alice29.txt")[:1000]
-    width = 1000 + ENC_PAD
-    lens = [1000, width - ENC_PAD + 1, -1, 1 << 20, 1000]
-    blocks = np.zeros((len(lens), width), np.uint8)
-    blocks[:, :1000] = np.frombuffer(text, np.uint8)
-    out, olens = emu(blocks, np.array(lens, np.int32), 2)
-    assert olens[1:4].tolist() == [-1, -1, -1] and not out[1:4].any()
-    good, good_lens = _plain(blocks[:1], np.array([1000], np.int32), 2)
-    for r in (0, 4):
-        assert olens[r] == good_lens[0]
-        np.testing.assert_array_equal(out[r], good[0])
+    for width in (1000 + ENC_PAD, *WIDTHS.values()):
+        lens = [1000, width - ENC_PAD + 1, -1, 1 << 20, 1000]
+        blocks = np.zeros((len(lens), width), np.uint8)
+        blocks[:, :1000] = np.frombuffer(text, np.uint8)
+        out, olens = emu(blocks, np.array(lens, np.int32), 2)
+        assert olens[1:4].tolist() == [-1, -1, -1] and not out[1:4].any(), width
+        good, good_lens = _plain(blocks[:1], np.array([1000], np.int32), 2)
+        for r in (0, 4):
+            assert olens[r] == good_lens[0], width
+            np.testing.assert_array_equal(out[r], good[0])
 
 
-CHUNK = record_chunk()
-CHASE_ROWS = chase_rows()
-# What each row must do in the plain parse at min_profit 2, where it says.
-EXPECT = {
-    "text-more-takes-than-a-chunk": lambda t: len(t) > 2 * CHUNK,
-    "html-64k": lambda t: len(t) > CHUNK,
-    **{f"match-{n}-{far}": (lambda t, n=n: n in {m for _, m in t}) for n in (7, 8, 9) for far in ("near", "far")},
-    "rle-64k": lambda t: t == [(1, 65535)],
-    "zeros-64k": lambda t: t == [(1, 65535)],
-    "period-3-64k": lambda t: t == [(3, 65533)],
-    "match-cut-at-the-row-end": lambda t: t == [(40, 30)],
-    "literals-across-chunks": lambda t: len(t) > 2 * CHUNK,
-    "1-chunks-exactly-full": lambda t: len(t) == CHUNK,
-    "2-chunks-exactly-full": lambda t: len(t) == 2 * CHUNK,
-    "collision-16k": lambda t: t == [],
-}
+def _expect(bits):
+    """What each chase row of the variant must do in the plain parse at
+    min_profit 2, where it says."""
+    chunk, n, size = record_chunk(bits), 1 << bits, f"{1 << (bits - 10)}k"
+    return {
+        "text-more-takes-than-a-chunk": lambda t: len(t) > 2 * chunk,
+        f"html-{size}": lambda t: len(t) > chunk,
+        **{f"match-{m}-{far}": (lambda t, m=m: m in {k for _, k in t}) for m in (7, 8, 9) for far in ("near", "far")},
+        f"rle-{size}": lambda t: t == [(1, n - 1)],
+        f"zeros-{size}": lambda t: t == [(1, n - 1)],
+        f"period-3-{size}": lambda t: t == [(3, n - 3)],
+        "match-cut-at-the-row-end": lambda t: t == [(40, 30)],
+        "literals-across-chunks": lambda t: len(t) > 2 * chunk,
+        "1-chunks-exactly-full": lambda t: len(t) == chunk,
+        "2-chunks-exactly-full": lambda t: len(t) == 2 * chunk,
+        "collision-16k": lambda t: t == [],
+    }
 
 
-@pytest.mark.parametrize("min_profit", [0, 1, 2, 3])
-@pytest.mark.parametrize("name", list(CHASE_ROWS))
-def test_chase_rows_match_plain_version(emu, name, min_profit):
-    row = CHASE_ROWS[name]
+CHASE_ROWS = {bits: chase_rows(bits) for bits in WIDTHS}
+EXPECT = {bits: _expect(bits) for bits in WIDTHS}
+
+
+@pytest.mark.parametrize(
+    "bits,name,min_profit", _by_width(lambda bits: [(name, mp) for name in CHASE_ROWS[bits] for mp in (0, 1, 2, 3)]))
+def test_chase_rows_match_plain_version(emu, bits, name, min_profit):
+    row = CHASE_ROWS[bits][name]
+    assert EXPECT[bits].keys() == CHASE_ROWS[bits].keys()
     if min_profit == 2:
-        assert EXPECT[name](plain_takes(row, 2)), f"{name}: the row does not exercise what it is for"
-    blocks, blens = _batch([row], 65536 + ENC_PAD)
+        assert EXPECT[bits][name](plain_takes(row, 2)), f"{name}: the row does not exercise what it is for"
+    blocks, blens = _batch([row], WIDTHS[bits])
     out, olens = emu(blocks, blens, min_profit)
     p_out, p_olens = _plain(blocks, blens, min_profit)
     np.testing.assert_array_equal(olens, p_olens)
@@ -315,8 +351,28 @@ def test_extend_counts_on_from_the_capped_length(emu_lib, limit):
 
 
 def test_collision_block_keys_are_distinct_and_share_a_hash():
-    row = np.frombuffer(collision_block(65536), np.uint8)
-    keys = row.view("<u4").astype(np.uint64)
-    assert len(np.unique(keys)) == len(keys) == 16384 and not (keys == 0xFFFFFFFF).any()
-    hashes = ((keys * HASH_MUL) & 0xFFFFFFFF) >> (32 - HASH_BITS)
-    assert len(np.unique(hashes)) == 1
+    """The collision block of each variant: its keys share one hash of the
+    variant's width, so that every chain holds all the earlier keys."""
+    for bits in WIDTHS:
+        n = 1 << bits
+        row = np.frombuffer(collision_block(n, bits=hash_bits(bits)), np.uint8)
+        keys = row.view("<u4").astype(np.uint64)
+        assert len(np.unique(keys)) == len(keys) == n // 4 and not (keys == 0xFFFFFFFF).any()
+        hashes = ((keys * HASH_MUL) & 0xFFFFFFFF) >> (32 - hash_bits(bits))
+        assert len(np.unique(hashes)) == 1, bits
+
+
+def test_the_launcher_picks_the_variant_by_row_width(emu_lib):
+    """Rows of up to 32 KiB of block take the 32 KiB variant, wider ones the
+    64 KiB variant, whose constants are those before the variants came: a
+    chase chunk of 376 records and 232,432 bytes of shared memory. Two
+    blocks of the 32 KiB variant, each with the 1 KiB the card reserves a
+    block, fit the SM's 233,472 bytes."""
+    lib = emu_lib[1]
+    lib.emu_block_bits.argtypes = [ctypes.c_int64]
+    lib.emu_smem_bytes.restype = ctypes.c_int64
+    assert [lib.emu_block_bits(w) for w in (ENC_PAD, 1000 + ENC_PAD, WIDTHS[15], WIDTHS[15] + 1, WIDTHS[16])] == [
+        15, 15, 15, 16, 16]
+    assert lib.emu_smem_bytes(16) == 232432 and lib.emu_chunk(16) == record_chunk(16) == 376
+    assert lib.emu_chunk(15) == record_chunk(15)
+    assert 2 * (lib.emu_smem_bytes(15) + 1024) <= 233472 < 2 * (lib.emu_smem_bytes(16) + 1024)

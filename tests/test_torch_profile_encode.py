@@ -50,7 +50,25 @@ def test_batches(small_batches):
         assert blocks.shape == (len(blens), SMALL + ENC_PAD) and blocks.dtype == np.uint8 and blens.dtype == np.int32
         assert (blens > 0).all() and (blens <= SMALL).all()
     blocks, blens = small_batches["collision, 2 blocks"]
-    assert (blocks[0] == blocks[1]).all() and blocks[0, :SMALL].tobytes() == tool.collision_block(SMALL)
+    # Blocks of SMALL bytes go to the 32 KiB variant: keys share its 13-bit hash.
+    assert tool.variant_bits(SMALL) == 15
+    assert (blocks[0] == blocks[1]).all() and blocks[0, :SMALL].tobytes() == tool.collision_block(SMALL, bits=13)
+
+
+def test_narrow_batches():
+    """The 32 KiB variant's batches at a small size: the corpus mix cut to
+    the block size, the benchmark's lineitem rows (their 4-byte row sizes
+    big-endian, as Spark writes them), the collision rows."""
+    got = tool.narrow_batches(mix_blocks=2, lineitem_blocks=3, collision_rows=(1,), n=SMALL)
+    labels = list(got)
+    assert labels[0].startswith("corpus mix cut to 4 KiB, ") and labels[0].endswith(" device blocks of 2")
+    assert labels[1:] == ["lineitem, 3 blocks of 4 KiB", "collision of 4 KiB, 1 blocks"]
+    for blocks, blens in got.values():
+        assert blocks.shape == (len(blens), SMALL + ENC_PAD) and (blens == SMALL).all()
+    rows, _ = got["lineitem, 3 blocks of 4 KiB"]
+    size = int.from_bytes(rows[0, :4].tobytes(), "big")
+    assert 100 < size < 400 and len(rows) == 3
+    assert tool.lineitem_rows(3, SMALL).tobytes() == rows[:, :SMALL].tobytes()
 
 
 def test_measure_runs_the_plain_version(small_batches):
@@ -97,17 +115,20 @@ def profiled(tmp_path_factory):
 
 
 def test_instrumented_copy_counts_the_takes(profiled):
+    """In both variants: 64 KiB rows and 32 KiB rows."""
     run, lib = profiled
-    rows = [read_testdata("alice29.txt")[:65536], read_testdata("html")[:20000], b"q" * 5000, b"", tool.literals_across_chunks()]
-    blocks, blens = _batch(rows, 65536 + ENC_PAD)
-    counts = lib.emu_prof()
-    for i in range(8):
-        counts[i] = 0
-    out, olens = run(blocks, blens, 2)
-    p_out, p_olens = encode_torch.encode_blocks(torch.from_numpy(blocks), torch.from_numpy(blens), 2)
-    np.testing.assert_array_equal(olens, p_olens.numpy())
-    np.testing.assert_array_equal(out, p_out.numpy())
-    c = [counts[i] for i in range(8)]
-    assert c[tool.TAKES] == sum(len(plain_takes(r, 2)) for r in rows)
-    assert c[tool.TOTAL] >= sum(c[: len(tool.PHASES)]) > 0
-    assert all(v > 0 for v in c[: len(tool.PHASES)])
+    for block in (65536, 32768):
+        rows = [read_testdata("alice29.txt")[:block], read_testdata("html")[:20000], b"q" * 5000, b"",
+                tool.literals_across_chunks(block)]
+        blocks, blens = _batch(rows, block + ENC_PAD)
+        counts = lib.emu_prof()
+        for i in range(8):
+            counts[i] = 0
+        out, olens = run(blocks, blens, 2)
+        p_out, p_olens = encode_torch.encode_blocks(torch.from_numpy(blocks), torch.from_numpy(blens), 2)
+        np.testing.assert_array_equal(olens, p_olens.numpy())
+        np.testing.assert_array_equal(out, p_out.numpy())
+        c = [counts[i] for i in range(8)]
+        assert c[tool.TAKES] == sum(len(plain_takes(r, 2)) for r in rows)
+        assert c[tool.TOTAL] >= sum(c[: len(tool.PHASES)]) > 0
+        assert all(v > 0 for v in c[: len(tool.PHASES)])
