@@ -165,6 +165,22 @@ non-zero:
               utils/profiling.profile_to around one uncompress_framed of
               phase 8's frame: one trace file naming K1's annotation
               (framed.dispatch_uncompress), with its kernel events counted
+ 17. streams  the batched raw-stream decoder (distributed.decompress_streams)
+              on one row group of the benchmark's parquet_lineitem (made on
+              the card by perfbench/data/parquet_lineitem.py) and, after it
+              at odd offsets, native streams of corpus files and streams at
+              the segmenter's edges (a merge, a literal across the mark, a
+              whole long literal, a cut stream): K4 (csrc/segment_streams.cu)
+              equal to native.scan_blocks stream for stream (its rows, or
+              one whole row, or not ok), its counts; K1's ragged variant
+              equal to the fixed-width K1 on the same rows packed, row for
+              row (bytes, ok, total); the whole call equal to the plain
+              reference (cpu/streams_reference.py, each stream alone on the
+              card) page for page, and to the generator's pages, with one
+              launch of K4 and one of the ragged K1; K4's and the ragged
+              K1's device times on the row group beside their bounds (K4's
+              with every stream byte read, and with the tags alone), and
+              K4's beside its plain version's on 64 streams
 
 Before the last line it prints the card's `nvidia-smi` name and power limit
 and one JSON line {"kernels": [...]} with each kernel's launches on its main
@@ -172,7 +188,8 @@ path, its launches on phase 13's stream path (K1 and K2: "stream_launches"),
 on phase 14's 4-shard mesh and two ranks ("mesh_launches",
 "multihost_launches", the ranks' sum) and over phase 16 (K1, K2 and K3:
 "bench_launches", the bench's own count and run_corpus's and the
-profiled call's),
+profiled call's), K4's ("segment_streams": phase 17's decompress_streams
+call, with the ragged K1's as "ragged_k1_launches"),
 its largest difference from the plain version, its time beside the
 plain version's at the main path's shape, and its bound: the larger of the
 bytes it must move (inputs read once, outputs written once, as this run's
@@ -897,6 +914,258 @@ def bench_phase(card: str, raw_main: bytes, frame: bytes, dev) -> dict[str, int]
     return {k: bench_launches[k] + after[k] - before[k] for k in modules}
 
 
+def edge_streams() -> list[tuple[bytes, int]]:
+    """(stream, stated length) at the segmenter's edges: a copy that merges
+    two segments, a literal across the 64 KiB mark, a 200,000-byte literal
+    (taken whole), a cut stream (not ok)."""
+    from snappy_tpu_torch.core import varint
+
+    def literal(data: bytes) -> bytes:
+        return bytes([62 << 2]) + (len(data) - 1).to_bytes(3, "little") + data
+
+    rng = np.random.default_rng(17)
+    noise = rng.integers(0, 256, 200_000, dtype=np.uint8).tobytes()
+    merged = noise[:BLOCK] + noise[BLOCK - 100 : BLOCK - 96]
+    across = b"".join(literal(noise[a:b]) for a, b in ((0, 2000), (2000, 67000), (67000, 131072)))
+    cut = varint.encode32(100_000) + literal(noise[:100_000])[:50_000]
+    return [(varint.encode32(len(merged)) + literal(noise[:BLOCK]) + bytes([0x01, 100]), len(merged)),
+            (varint.encode32(131072) + across, 131072), (varint.encode32(200_000) + literal(noise), 200_000),
+            (cut, 100_000)]
+
+
+def literal_payload(comp, starts, clens, ulens) -> int:
+    """The literals' payload bytes of the raw streams in ``comp`` (uint8 on
+    the card; stream i the ``clens[i]`` bytes at ``starts[i]``, stated to
+    decode to ``ulens[i]``; numpy), by pointer jumping over every byte's
+    next tag: what a walk of the tags alone does not read."""
+    import torch
+
+    dev = comp.device
+    n = comp.numel()
+    pos = torch.arange(n, device=dev)
+    st = torch.from_numpy(starts).to(dev)
+    ends = st + torch.from_numpy(clens.astype(np.int64)).to(dev)
+    owner = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    owner.index_add_(0, st, torch.ones_like(st))
+    owner = torch.cumsum(owner, 0)[:n] - 1
+    stream_end = torch.where(owner >= 0, ends[owner.clamp(min=0)], 0)
+    inside = pos < stream_end
+    b = comp.long()
+    short = b >> 2
+    extra = (short - 59).clamp(min=0, max=4)
+    lit = sum(torch.where(extra > k, b[(pos + 1 + k).clamp(max=n - 1)] << (8 * k), 0) for k in range(4))
+    lit = torch.where(short < 60, short, lit) + 1
+    is_lit = (b & 3) == 0
+    size = torch.where(is_lit, 1 + extra + lit, torch.tensor([0, 2, 3, 5], device=dev)[b & 3])
+    del short, extra, b
+    sink = torch.full((1,), n, device=dev)
+    nxt = torch.cat([torch.where(inside & (pos + size < stream_end), pos + size, n), sink])
+    weight = torch.cat([torch.where(inside & is_lit & (pos + size <= stream_end), lit, 0), sink * 0])
+    del pos, size, lit, is_lit, inside, stream_end, owner
+    while bool((nxt[:n] < n).any()):
+        weight = weight + weight[nxt]
+        nxt = nxt[nxt]
+    u = torch.from_numpy(ulens.astype(np.int64)).to(dev)
+    heads = st + 1 + sum((u >= 1 << (7 * k)).long() for k in range(1, 5))
+    return int(weight[heads].sum())
+
+
+def streams_phase(card: str, dev) -> dict:
+    """Phase 17: the batched raw-stream decoder on a row group of
+    parquet_lineitem and odd streams after it. Returns K4's entry of the
+    kernels line."""
+    import torch
+
+    from perfbench.data import parquet_lineitem
+    from perfbench.registry import Registry
+    from snappy_tpu_torch import CorruptInputError
+    from snappy_tpu_torch.cpu import streams_reference
+    from snappy_tpu_torch.native import runtime as nat
+    from snappy_tpu_torch.ops import cuda_decode, cuda_segment
+    from snappy_tpu_torch.ops.host import pack_rows
+    from snappy_tpu_torch.parallel import distributed
+    from snappy_tpu_torch.utils import profiling
+    from snappy_tpu_torch.utils.metrics import time_device_fn
+
+    t0 = time.perf_counter()
+    config = Registry().config("parquet_lineitem")
+    groups = parquet_lineitem.row_groups(config, dev)
+    group = groups[0]
+    t_gen = time.perf_counter() - t0
+    # The row group, then the odd streams, each after a gap of 0 to 40 bytes.
+    rng = np.random.default_rng(171)
+    extra = [(nat.compress(read(n)), len(read(n))) for n in ("alice29.txt", "html", "fireworks.jpeg")]
+    extra += edge_streams()
+    data, starts = bytearray(group.data.tobytes()), list(group.starts.tolist())
+    clens, ulens = list(group.clens.tolist()), list(group.ulens.tolist())
+    out_starts, out_len = list(group.out_starts.tolist()), group.out_len
+    for stream, stated in extra:
+        data += rng.integers(0, 256, int(rng.integers(0, 41)), dtype=np.uint8).tobytes()
+        starts.append(len(data))
+        data += stream
+        clens.append(len(stream))
+        ulens.append(stated)
+        out_len += int(rng.integers(0, 24))
+        out_starts.append(out_len)
+        out_len += stated
+    host = np.frombuffer(bytes(data), np.uint8)
+    args = (torch.from_numpy(host.copy()).to(dev), torch.tensor(starts, device=dev),
+            torch.tensor(clens, dtype=torch.int32, device=dev), torch.tensor(ulens, dtype=torch.int32, device=dev),
+            torch.tensor(out_starts, device=dev), out_len)
+    n = len(starts)
+    pages = len(group.starts)
+
+    def against_scan(host, starts, clens, ulens, out_starts, out_len):
+        """K4 on the streams against the native scan, stream for stream:
+        (rows, ok, stats) as numpy arrays, rows past the reservation cut."""
+        n = len(starts)
+        capacity = cuda_segment.capacity_for(n, out_len)  # the table segment_streams takes
+        args = (torch.from_numpy(host.copy()).to(dev), torch.tensor(starts, device=dev),
+                torch.tensor(clens, dtype=torch.int32, device=dev), torch.tensor(ulens, dtype=torch.int32, device=dev),
+                torch.tensor(out_starts, device=dev), out_len)
+        before = profiling.counters()
+        rows, ok, stats = cuda_segment.segment_streams(*args)
+        torch.cuda.synchronize()
+        launched = profiling.since(before)["k4.launches"]
+        check(launched == 1, f"K4 launched {launched} times for one call")
+        ok, stats = ok.cpu().numpy().astype(bool), stats.cpu().numpy()
+        used = int(stats[0])
+        cols = [r[:used].cpu().numpy() for r in rows]
+        ins, outs, cls, uls, sts = cols
+        by_stream = {}
+        for i in np.flatnonzero(cls > 0):
+            by_stream.setdefault(int(sts[i]), []).append(i)
+        want_rows = want_whole = 0
+        for s in range(n):
+            stream = host[starts[s] : starts[s] + clens[s]]
+            try:
+                ulen, h = nat.uncompressed_length(stream.tobytes())
+                scan = nat.scan_blocks(stream[h:], ulen) if ulen == ulens[s] else False
+            except CorruptInputError:
+                scan = False
+            got = sorted(by_stream.get(s, []), key=lambda i: ins[i])
+            if scan is False:
+                check(not ok[s] and not got, f"stream {s}: K4 kept a stream the native scan calls corrupt")
+                continue
+            check(ok[s], f"stream {s}: K4 refused a stream the native scan takes")
+            body = starts[s] + h
+            if scan is None:
+                want_whole += 1
+                check([(ins[i], cls[i], uls[i], outs[i]) for i in got] == [(body, clens[s] - h, ulen, out_starts[s])],
+                      f"stream {s}: not one whole row")
+            else:
+                seg_starts, oplens = scan
+                check([int(ins[i]) - body for i in got] == seg_starts.tolist()
+                      and [int(uls[i]) for i in got] == oplens.tolist()
+                      and [int(outs[i]) - out_starts[s] for i in got] == (np.cumsum(oplens) - oplens).tolist(),
+                      f"stream {s}: K4's segments differ from the native scan's")
+            want_rows += len(got)
+        check(int(stats[1]) == int((cls > 0).sum()) == want_rows and int(stats[3]) == want_whole,
+              f"K4's counts {stats.tolist()} against {want_rows} rows, {want_whole} whole")
+        return rows, ok, stats, cols, capacity
+
+    # K4 against the native scan, stream for stream: the first row group with
+    # the odd streams after it, then the other resident row groups alone.
+    rows, ok, stats, (ins, outs, cls, uls, sts), capacity = against_scan(host, starts, clens, ulens, out_starts,
+                                                                         out_len)
+    used = int(stats[0])
+    check(ok[:pages].all() and ok.tolist()[-1] is False, "the row group's pages all ok, the cut stream not")
+    for other in groups[1:]:
+        _, other_ok, _, _, _ = against_scan(other.data, other.starts.tolist(), other.clens.tolist(),
+                                            other.ulens.tolist(), other.out_starts.tolist(), other.out_len)
+        check(other_ok.all(), "a row group's pages all ok")
+    print(f"[17 streams] K4 on {n} streams ({pages} pages of a {group.rows}-row group, {len(extra)} odd ones): "
+          f"{int(stats[1])} rows in a table of {capacity}, {int(stats[2])} boundaries merged, {int(stats[3])} whole; "
+          f"and on the other {len(groups) - 1} resident row groups ({sum(len(g.starts) for g in groups[1:])} pages; "
+          f"all {len(groups)} made in {t_gen:.1f} s): equal to native.scan_blocks stream for stream", flush=True)
+
+    # K1's ragged variant against the fixed-width K1, row for row.
+    out = torch.zeros(out_len, dtype=torch.uint8, device=dev)
+    flags = torch.from_numpy(ok.astype(np.uint8)).to(dev)
+    r_ok, r_total = cuda_decode.decode_segments(args[0], rows, torch.tensor([used], device=dev), out, flags)
+    fixed = torch.from_numpy(pack_rows(host, ins, cls)).to(dev)
+    out_size = -(-max(int(uls.max()), 1) // 16) * 16
+    f_out, f_ok, f_total = cuda_decode.decode_blocks(fixed, torch.from_numpy(cls).to(dev),
+                                                     torch.from_numpy(uls).to(dev), out_size)
+    r_ok, f_ok = r_ok[:used].cpu().numpy(), f_ok.cpu().numpy()
+    check((r_ok == f_ok).all() and f_ok.all(), "the ragged K1's ok differs from the fixed K1's")
+    check((r_total[:used].cpu().numpy() == f_total.cpu().numpy()).all(), "the ragged K1's totals differ")
+    got, want = out.cpu().numpy(), f_out.cpu().numpy()
+    for i in range(used):
+        check(np.array_equal(got[outs[i] : outs[i] + uls[i]], want[i, : uls[i]]), f"ragged row {i} differs")
+    del fixed, f_out
+    print(f"[17 streams] K1's ragged variant on {used} rows equal to the fixed-width K1 on them packed "
+          f"({out_size}-byte rows), row for row", flush=True)
+
+    # The whole call against the plain reference and the generator's pages.
+    t0 = time.perf_counter()
+    before = profiling.counters()
+    got_out, got_ok = distributed.decompress_streams(*args)
+    torch.cuda.synchronize()
+    moved = profiling.since(before)
+    k4_launches, k1_launches = moved["k4.launches"], moved["k1.launches"]
+    check(k4_launches == 1 and k1_launches == 1,
+          f"decompress_streams launched K4 {k4_launches} and K1 {k1_launches} times for one call, not once each")
+    ref_out, ref_ok = streams_reference.decompress_streams(*args)
+    t_ref = time.perf_counter() - t0
+    check(torch.equal(got_ok, ref_ok), "decompress_streams' flags differ from the reference's")
+    covered = torch.zeros(out_len, dtype=torch.bool, device=dev)
+    for s in np.flatnonzero(ok):
+        covered[out_starts[s] : out_starts[s] + ulens[s]] = True
+    check(torch.equal(got_out[covered], ref_out[covered]), "decompress_streams' pages differ from the reference's")
+    host_out = got_out.cpu().numpy()
+    for s, (o, u) in enumerate(zip(group.out_starts.tolist(), group.ulens.tolist())):
+        check(np.array_equal(host_out[o : o + u], group.pages[o : o + u]), f"page {s} differs from the generator's")
+    print(f"[17 streams] decompress_streams equal to the plain reference page for page ({t_ref:.1f} s with it) "
+          f"and to the generator's pages; launches: K4 {k4_launches}, ragged K1 {k1_launches}", flush=True)
+
+    # Device times on the row group alone, beside their bounds.
+    rg = (args[0][: len(group.data)], *(a[:pages] for a in args[1:5]), group.out_len)
+    k4_ms = time_device_fn(cuda_segment.segment_streams, rg) * 1e3
+    rg_rows, rg_ok, rg_stats = cuda_segment.segment_streams(*rg)
+    rg_out = torch.empty(group.out_len, dtype=torch.uint8, device=dev)
+    k1_ms = time_device_fn(cuda_decode.decode_segments, (rg[0], rg_rows, rg_stats[:1], rg_out, rg_ok)) * 1e3
+    call_ms = time_device_fn(distributed.decompress_streams, rg) * 1e3
+    segs = int(rg_stats[1])
+    comp_bytes = int(group.clens.sum())
+    k4_bound = bound(comp_bytes + 24 * pages, 28 * segs + pages)
+    # A walk of the tags alone skips the literals' bytes: its least read.
+    payload = literal_payload(rg[0], group.starts, group.clens, group.ulens)
+    k4_tag_bound = bound(comp_bytes - payload + 24 * pages, 28 * segs + pages)
+    k1_bound = bound(comp_bytes + 28 * segs, int(group.ulens.sum()) + 5 * segs)
+    sub = (args[0], *(a[:64] for a in args[1:5]), out_len)
+    plain = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in sub)
+    plain_ms = time_device_fn(cuda_segment.segment_streams_plain, (*plain, cuda_segment.capacity_for(64, out_len)),
+                              iters=1, warmup=0) * 1e3
+    sub_ms = time_device_fn(cuda_segment.segment_streams, sub) * 1e3
+    k4_smem, k4_per_sm = cuda_segment.occupancy()
+    print(f"[17 streams] K4: {k4_smem} bytes of shared memory a block, {k4_per_sm} blocks an SM", flush=True)
+    print(f"[17 streams] on {card}, one row group ({pages} pages, {comp_bytes} stream bytes, "
+          f"{int(group.ulens.sum())} page bytes, {segs} segments, {payload} of the stream bytes literals' "
+          f"payload): K4 {k4_ms:.4f} ms (bound {k4_bound[0]:.4f}, {k4_bound[1]}, with every stream byte read; "
+          f"{k4_tag_bound[0]:.4f} with the tags alone), ragged K1 {k1_ms:.4f} ms (bound {k1_bound[0]:.4f}), the whole call {call_ms:.4f} ms, "
+          f"{int(group.ulens.sum()) / call_ms / 1e6:.2f} GB/s; K4 on the first 64 streams {sub_ms:.4f} ms, "
+          f"its plain version {plain_ms:.1f} ms", flush=True)
+    return {
+        "name": "segment_streams",
+        "route": "cuda",
+        "source": "snappy_tpu_torch/csrc/segment_streams.cu",
+        "replaces": None,
+        "launches": k4_launches,
+        "ragged_k1_launches": k1_launches,
+        "max_abs_err": 0,
+        "ms": k4_ms,
+        "plain_ms": plain_ms,
+        "ms_at_plain_shape": sub_ms,
+        "bound_ms": k4_bound[0],
+        "bound_by": k4_bound[1],
+        "tag_bound_ms": k4_tag_bound[0],
+        "library_ms": None,
+        "ragged_k1_ms": k1_ms,
+        "ragged_k1_bound_ms": k1_bound[0],
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1450,6 +1719,11 @@ def main() -> int:
     bench_launches = bench_phase(card, raw_main, frame_w, dev)
     print(f"[16 bench] launches over the phase {bench_launches}; phase {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 17. the batched raw-stream decoder
+    t0 = time.perf_counter()
+    k4_entry = streams_phase(card, dev)
+    print(f"[17 streams] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "decode_blocks",
@@ -1496,7 +1770,7 @@ def main() -> int:
         "bound_ms": k3_bound[0],
         "bound_by": k3_bound[1],
         "library_ms": None,
-    }, *probe_entries]}), flush=True)
+    }, k4_entry, *probe_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
     return 0

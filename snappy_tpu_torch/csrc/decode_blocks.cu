@@ -7,6 +7,13 @@
 //   in:  comp u8[B, C] (row b holds clens[b] bytes, C >= clen + 4),
 //        clens i32[B], ulens i32[B] (<= out_size)
 //   out: out u8[B, out_size], ok u8[B] (bool), total i32[B].
+// Its ragged variant (the same kernel name, the same walk) takes the rows
+// that K4 (segment_streams.cu) cuts from raw streams lying end to end in one
+// buffer: row b reads clens[b] bytes at comp + in_starts[b] and writes
+// exactly ulens[b] bytes at out + out_starts[b], neither aligned. It writes
+// nothing else, so the rows' outputs may lie side by side; a row that does
+// not decode is zeroed over its own ulens[b] bytes and clears its stream's
+// ok flag.
 // A row that decodes holds its bytes and zeros past total; a row that does
 // not is all zero and its total is not specified. The rules are those of the
 // plain version, ops/decode_torch.py, which this kernel matches bit for bit:
@@ -39,6 +46,10 @@
 //   takes every row (64 KiB framed blocks, raw segments, a whole
 //   unsegmentable stream), and ten blocks share an SM: 1024 blocks run in one
 //   wave on 132 SMs.
+// - a ragged row stages from the 16-byte chunk that holds its first byte, so
+//   its ring loads stay 16 bytes wide wherever the buffer is aligned; bytes
+//   the buffer does not hold past its end are staged as zeros, as a fixed
+//   row's padding is.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,22 +105,25 @@ __device__ __forceinline__ uint32_t mod_small(uint32_t j, uint32_t f) {
 }
 
 // The ring := comp bytes [base, end) of the row: from `at` rounded down to 16,
-// kRing of them or up to in_end. 16-byte loads where the row allows them.
-// All lanes call it.
+// kRing of them or up to in_end, those at or past `have` (outside the buffer)
+// as zeros. 16-byte loads where the row allows them. All lanes call it.
 __device__ __forceinline__ void stage(uint8_t* ring, const uint8_t* __restrict__ src, uint32_t at,
-                                      uint32_t in_end, bool wide, int lane, uint32_t& base, uint32_t& end) {
+                                      uint32_t in_end, bool wide, int lane, uint32_t& base, uint32_t& end,
+                                      uint32_t have) {
   __syncwarp();  // lanes may still read what the ring held
   base = at & ~15u;
   end = lesser(base + kRing, in_end);
+  const uint32_t real = lesser(end, have);
   uint32_t i = lane;
   if (wide) {
-    const uint32_t n16 = (end - base) >> 4;
+    const uint32_t n16 = (real - base) >> 4;
     const uint4* s4 = reinterpret_cast<const uint4*>(src + base);
     uint4* r4 = reinterpret_cast<uint4*>(ring);
     for (uint32_t k = lane; k < n16; k += kWarp) r4[k] = s4[k];
     i = (n16 << 4) + lane;
   }
-  for (; i < end - base; i += kWarp) ring[i] = src[base + i];
+  for (; i < real - base; i += kWarp) ring[i] = src[base + i];
+  for (; i < end - base; i += kWarp) ring[i] = 0;
   __syncwarp();
 }
 
@@ -172,11 +186,24 @@ __device__ __forceinline__ void zero(uint8_t* dst, int64_t from, int64_t to, boo
   for (; i < to; i += kWarp) dst[i] = 0;
 }
 
-__global__ void __launch_bounds__(kWarp)
-decode_blocks_kernel(const uint8_t* __restrict__ comp, const int32_t* __restrict__ clens,
-                     const int32_t* __restrict__ ulens, int64_t row_c, int64_t out_size,
-                     uint8_t* out, uint8_t* __restrict__ ok_out,
-                     int32_t* __restrict__ total_out) {
+// Where the rows of a ragged launch lie.
+struct Ragged {
+  const int64_t* in_starts;   // row b's stream: clens[b] bytes at comp + in_starts[b]
+  const int64_t* out_starts;  // its output: ulens[b] bytes at out + out_starts[b]
+  const int32_t* streams;     // the stream row b belongs to
+  uint8_t* stream_ok;         // a stream's flag, cleared by its rows that do not decode
+  const int64_t* rows;        // rows[0]: the rows that hold segments; blocks past them exit
+  int64_t comp_len, out_len;  // bytes of comp and of out
+};
+
+// One row of either variant: block blockIdx.x's. A fixed row lies at
+// comp + b * row_c, its output at out + b * out_size; a ragged one where
+// `rag` says (row_c and out_size are then 0).
+template <bool kRagged>
+__device__ __forceinline__ void decode_row(const uint8_t* __restrict__ comp, const int32_t* __restrict__ clens,
+                                           const int32_t* __restrict__ ulens, int64_t row_c, int64_t out_size,
+                                           uint8_t* out, uint8_t* __restrict__ ok_out,
+                                           int32_t* __restrict__ total_out, const Ragged& rag) {
   // The window, then the ring, in one array: a move reads either by index.
   __shared__ __align__(16) uint8_t smem[kWindow + kRing];
   __shared__ uint4 recs[kWarp];  // a batch's tags: output position, length | literal flag, source
@@ -184,27 +211,46 @@ decode_blocks_kernel(const uint8_t* __restrict__ comp, const int32_t* __restrict
   uint8_t* const ring = smem + kWindow;
   const int64_t row = blockIdx.x;
   const int lane = threadIdx.x;
+  if (kRagged && row >= rag.rows[0]) return;
   const uint8_t* src = comp + row * row_c;
   uint8_t* dst = out + row * out_size;
 
   // The wrapper does not read the lengths (that would wait for the stream):
   // a row whose lengths do not fit decodes nothing and comes back not ok and
-  // all zero, reading or writing nothing outside its own row.
+  // all zero, reading or writing nothing outside its own row. A ragged row
+  // that does not fit its buffers writes nothing at all.
   const int64_t clen64 = clens[row], ulen64 = ulens[row];
-  bool ok = clen64 >= 0 && clen64 <= row_c - kCompPad && ulen64 >= 0 && ulen64 <= out_size;
-  const uint32_t clen = ok ? uint32_t(clen64) : 0, ulen = ok ? uint32_t(ulen64) : 0;
+  bool ok;
+  uint32_t shift = 0;    // bytes staged before a ragged row's stream
+  int64_t have = row_c;  // bytes of comp from src on
+  bool aligned = (uintptr_t(row_c) & 15) == 0;
+  if (kRagged) {
+    const int64_t in0 = rag.in_starts[row], out0 = rag.out_starts[row];
+    ok = in0 >= 0 && clen64 >= 0 && in0 <= rag.comp_len - clen64 && out0 >= 0 && ulen64 >= 0 &&
+         out0 <= rag.out_len - ulen64;
+    aligned = (reinterpret_cast<uintptr_t>(comp) & 15) == 0;
+    shift = ok && aligned ? uint32_t(in0 & 15) : 0u;
+    src = comp + (ok ? in0 - shift : 0);
+    dst = out + (ok ? out0 : 0);
+    have = ok ? rag.comp_len - (in0 - shift) : 0;
+    out_size = ok ? ulen64 : 0;
+  } else {
+    ok = clen64 >= 0 && clen64 <= row_c - kCompPad && ulen64 >= 0 && ulen64 <= out_size;
+  }
+  const uint32_t clen = ok ? uint32_t(clen64) + shift : 0, ulen = ok ? uint32_t(ulen64) : 0;
   // 16-byte moves where the row's start (and, for the input, width) allow.
-  const bool wide_in = ((reinterpret_cast<uintptr_t>(src) | uintptr_t(row_c)) & 15) == 0;
+  const bool wide_in = aligned && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
   const bool wide_out = (reinterpret_cast<uintptr_t>(dst) & 15) == 0;
   // The ring reads no further than the stream and its padding.
   const uint32_t in_end = wide_in ? (clen + kCompPad + 15) & ~15u : clen + kCompPad;
+  const uint32_t in_have = uint32_t(have < int64_t(in_end) ? have : int64_t(in_end));
 
-  uint32_t ip = 0, op = 0, flushed = 0;  // the row holds output [0, flushed)
+  uint32_t ip = shift, op = 0, flushed = 0;  // the row holds output [0, flushed)
   uint32_t rbase = 0, rend = 0;          // the ring holds comp [rbase, rend)
   // Every lane walks the same tags, so all control flow is warp-uniform.
   while (ok && ip + 1 < clen) {
     // The tag lies past the ring: stage from it.
-    if (ip + 5 > rend) stage(ring, src, ip, in_end, wide_in, lane, rbase, rend);
+    if (ip + 5 > rend) stage(ring, src, ip, in_end, wide_in, lane, rbase, rend, in_have);
     // The chase: the positions of up to 32 tags that lie in the ring with
     // their bytes, the k-th kept by lane k; from each tag byte only its
     // length. A literal with a length trailer, or whose bytes run past the
@@ -244,7 +290,7 @@ decode_blocks_kernel(const uint8_t* __restrict__ comp, const int32_t* __restrict
       ip = s + n;
       // The literal lies past the ring: stage from it (a literal longer
       // than the ring is staged again as it is moved).
-      if (ip > rend) stage(ring, src, s, in_end, wide_in, lane, rbase, rend);
+      if (ip > rend) stage(ring, src, s, in_end, wide_in, lane, rbase, rend, in_have);
       // Its bytes go from the ring through the window, at most half a
       // window at a time.
       for (;;) {
@@ -260,7 +306,7 @@ decode_blocks_kernel(const uint8_t* __restrict__ comp, const int32_t* __restrict
           __syncwarp();
         }
         if (n == 0) break;
-        if (s == rend) stage(ring, src, s, in_end, wide_in, lane, rbase, rend);
+        if (s == rend) stage(ring, src, s, in_end, wide_in, lane, rbase, rend, in_have);
       }
       continue;
     }
@@ -353,9 +399,31 @@ decode_blocks_kernel(const uint8_t* __restrict__ comp, const int32_t* __restrict
   }
   if (lane == 0) {
     ok_out[row] = ok ? 1 : 0;
+    if (kRagged && !ok) rag.stream_ok[rag.streams[row]] = 0;
     total_out[row] = static_cast<int32_t>(op);
   }
 }
+
+__global__ void __launch_bounds__(kWarp)
+decode_blocks_kernel(const uint8_t* __restrict__ comp, const int32_t* __restrict__ clens,
+                     const int32_t* __restrict__ ulens, int64_t row_c, int64_t out_size,
+                     uint8_t* out, uint8_t* __restrict__ ok_out,
+                     int32_t* __restrict__ total_out) {
+  decode_row<false>(comp, clens, ulens, row_c, out_size, out, ok_out, total_out, Ragged{});
+}
+
+// The ragged variant: the same walk over rows that lie where `rag` says.
+__global__ void __launch_bounds__(kWarp)
+decode_blocks_kernel(const uint8_t* __restrict__ comp, const int32_t* __restrict__ clens,
+                     const int32_t* __restrict__ ulens, uint8_t* out, uint8_t* __restrict__ ok_out,
+                     int32_t* __restrict__ total_out, const Ragged rag) {
+  decode_row<true>(comp, clens, ulens, 0, 0, out, ok_out, total_out, rag);
+}
+
+using FixedKernel = void (*)(const uint8_t*, const int32_t*, const int32_t*, int64_t, int64_t, uint8_t*, uint8_t*,
+                             int32_t*);
+using RaggedKernel = void (*)(const uint8_t*, const int32_t*, const int32_t*, uint8_t*, uint8_t*, int32_t*,
+                              Ragged);
 
 }  // namespace
 
@@ -371,8 +439,11 @@ static cudaError_t prefer_shared() {
   if (err != cudaSuccess) return err;
   const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
   if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(decode_blocks_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             int(cudaSharedmemCarveoutMaxShared));
+  err = cudaFuncSetAttribute(static_cast<FixedKernel>(decode_blocks_kernel),
+                             cudaFuncAttributePreferredSharedMemoryCarveout, int(cudaSharedmemCarveoutMaxShared));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(static_cast<RaggedKernel>(decode_blocks_kernel),
+                               cudaFuncAttributePreferredSharedMemoryCarveout, int(cudaSharedmemCarveoutMaxShared));
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
   return err;
 }
@@ -385,10 +456,34 @@ int snappy_cuda_decode_blocks(const void* comp, const void* clens, const void* u
   if (rows <= 0) return cudaSuccess;
   cudaError_t err = prefer_shared();
   if (err != cudaSuccess) return err;
-  decode_blocks_kernel<<<dim3(unsigned(rows)), kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
+  static_cast<FixedKernel>(decode_blocks_kernel)<<<dim3(unsigned(rows)), kWarp, 0,
+                                                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(comp), static_cast<const int32_t*>(clens),
       static_cast<const int32_t*>(ulens), row_c, out_size, static_cast<uint8_t*>(out),
       static_cast<uint8_t*>(ok), static_cast<int32_t*>(total));
+  return cudaGetLastError();
+}
+
+// Launch the ragged variant over max_rows blocks on `stream`: the rows that
+// rows[0] counts, as in_starts, clens, out_starts, ulens and streams give
+// them (i64, i32, i64, i32, i32), of the comp_len bytes at comp into the
+// out_len bytes at out; per row ok and total as above, and stream_ok
+// cleared for each stream with a row that does not decode. Returns the
+// launch's cudaError_t; does not synchronise.
+int snappy_cuda_decode_segments(const void* comp, int64_t comp_len, const void* in_starts, const void* clens,
+                                const void* out_starts, const void* ulens, const void* streams, const void* rows,
+                                int64_t max_rows, void* out, int64_t out_len, void* ok, void* total,
+                                void* stream_ok, void* stream) {
+  if (max_rows <= 0) return cudaSuccess;
+  cudaError_t err = prefer_shared();
+  if (err != cudaSuccess) return err;
+  const Ragged rag{static_cast<const int64_t*>(in_starts), static_cast<const int64_t*>(out_starts),
+                   static_cast<const int32_t*>(streams), static_cast<uint8_t*>(stream_ok),
+                   static_cast<const int64_t*>(rows), comp_len, out_len};
+  static_cast<RaggedKernel>(decode_blocks_kernel)<<<dim3(unsigned(max_rows)), kWarp, 0,
+                                                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(comp), static_cast<const int32_t*>(clens), static_cast<const int32_t*>(ulens),
+      static_cast<uint8_t*>(out), static_cast<uint8_t*>(ok), static_cast<int32_t*>(total), rag);
   return cudaGetLastError();
 }
 
@@ -396,12 +491,13 @@ int snappy_cuda_decode_blocks(const void* comp, const void* clens, const void* u
 // its blocks one SM of the current device holds at once.
 int snappy_cuda_decode_blocks_occupancy(int* smem_bytes, int* blocks_per_sm) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, decode_blocks_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&attr, static_cast<FixedKernel>(decode_blocks_kernel));
   if (err != cudaSuccess) return err;
   *smem_bytes = int(attr.sharedSizeBytes);
   err = prefer_shared();
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, decode_blocks_kernel, kWarp, 0);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, static_cast<FixedKernel>(decode_blocks_kernel),
+                                                       kWarp, 0);
 }
 
 const char* snappy_cuda_error_string(int err) {

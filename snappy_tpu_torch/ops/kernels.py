@@ -40,6 +40,13 @@ ENTRIES = {
     "decode_blocks": {
         "snappy_cuda_decode_blocks": (_INT, _DECODE_ARGS),
         "snappy_cuda_decode_blocks_occupancy": (_INT, [_PTR, _PTR]),
+        "snappy_cuda_decode_segments": (
+            _INT, [_PTR, _I64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _PTR, _I64, _PTR, _PTR, _PTR, _PTR]),
+    },
+    "segment_streams": {
+        "snappy_cuda_segment_streams": (
+            _INT, [_PTR, _I64, _PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]),
+        "snappy_cuda_segment_streams_occupancy": (_INT, [_PTR, _PTR]),
     },
     "encode_blocks": {
         "snappy_cuda_encode_blocks": (_INT, [_PTR, _PTR, _I64, _I64, _I64, _INT, _PTR, _PTR, _PTR]),

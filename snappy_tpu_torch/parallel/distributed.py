@@ -18,6 +18,11 @@ process, device-to-device copies into the whole result on every device.
 
 Across processes see ``multihost.py``: each process runs its own shards
 with these functions on the devices it feeds.
+
+``decompress_streams`` is the batched raw-stream decoder beside
+``decompress_blocks``: many raw Snappy streams at any offsets of one buffer
+on one device, each decoded into its place in one output, as a columnar
+reader decodes every page of a row group.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.config import DEFAULT_MIN_PROFIT
-from ..ops import select
+from ..ops import cuda_decode, cuda_segment, select
 from ..ops.host import HostCopy, stage
 from ..utils.profiling import trace_annotation
 
@@ -157,6 +162,35 @@ def decompress_blocks(comp, clens, ulens, mesh: Mesh, out_size: int, gather: boo
         if gather:
             return _gather(outs, mesh), _gather(oks, mesh), _gather(totals, mesh)
         return outs, oks, totals
+
+
+def decompress_streams(comp: torch.Tensor, starts: torch.Tensor, clens: torch.Tensor, ulens: torch.Tensor,
+                       out_starts: torch.Tensor, out_len: int):
+    """Decode n raw Snappy streams that lie in one buffer, each into its
+    place in one output, in one call on the buffer's device.
+
+    ``comp`` is uint8[N]; stream i is the ``clens[i]`` bytes at
+    ``starts[i]`` (int64, int32; any offset), its varint header included,
+    and is stated to decode to ``ulens[i]`` bytes (int32), which go to
+    ``out_starts[i]`` (int64) of an output of ``out_len`` bytes. Returns
+    (out uint8[out_len], ok bool[n]) on the same device; stream i is ok
+    where its header equals ``ulens[i]``, it and its output lie in their
+    buffers, and it decodes to exactly that many bytes. A stream that is
+    not ok touches no other stream's output; its own bytes are not
+    specified, nor are the bytes of ``out`` that no stream covers.
+
+    The headers are checked and each stream is cut into segments on the
+    device by K4 (``ops/cuda_segment.py``), and all segments of all streams
+    are decoded by one launch of K1's ragged variant
+    (``ops/cuda_decode.py::decode_segments``). On a card nothing waits: the
+    launches are queued on the current stream, and only K4's counts follow
+    them to the host, for the counters. On the CPU the plain versions run.
+    Runs in the span ``streams.decompress``."""
+    with trace_annotation("streams.decompress"):
+        rows, ok, stats = cuda_segment.segment_streams(comp, starts, clens, ulens, out_starts, out_len)
+        out = torch.empty(out_len, dtype=torch.uint8, device=comp.device)
+        cuda_decode.decode_segments(comp, rows, stats[:1], out, ok)
+        return out, ok.view(torch.bool)
 
 
 def to_host(sharded) -> list[HostCopy]:
