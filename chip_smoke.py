@@ -179,8 +179,10 @@ non-zero:
               card) page for page, and to the generator's pages, with one
               launch of K4 and one of the ragged K1; K4's and the ragged
               K1's device times on the row group beside their bounds (K4's
-              with every stream byte read, and with the tags alone), and
-              K4's beside its plain version's on 64 streams
+              with every stream byte read, and with the tags alone), K4's
+              slices of long streams on it (charted, and the shares the join
+              met on their charts and walked tag by tag), and K4's beside
+              its plain version's on 64 streams
 
 Before the last line it prints the card's `nvidia-smi` name and power limit
 and one JSON line {"kernels": [...]} with each kernel's launches on its main
@@ -1075,7 +1077,8 @@ def streams_phase(card: str, dev) -> dict:
                                             other.ulens.tolist(), other.out_starts.tolist(), other.out_len)
         check(other_ok.all(), "a row group's pages all ok")
     print(f"[17 streams] K4 on {n} streams ({pages} pages of a {group.rows}-row group, {len(extra)} odd ones): "
-          f"{int(stats[1])} rows in a table of {capacity}, {int(stats[2])} boundaries merged, {int(stats[3])} whole; "
+          f"{int(stats[1])} rows in a table of {capacity}, {int(stats[2])} boundaries merged, {int(stats[3])} whole, "
+          f"{int(stats[4])} slices charted ({int(stats[5])} met, {int(stats[6])} walked); "
           f"and on the other {len(groups) - 1} resident row groups ({sum(len(g.starts) for g in groups[1:])} pages; "
           f"all {len(groups)} made in {t_gen:.1f} s): equal to native.scan_blocks stream for stream", flush=True)
 
@@ -1127,6 +1130,9 @@ def streams_phase(card: str, dev) -> dict:
     k1_ms = time_device_fn(cuda_decode.decode_segments, (rg[0], rg_rows, rg_stats[:1], rg_out, rg_ok)) * 1e3
     call_ms = time_device_fn(distributed.decompress_streams, rg) * 1e3
     segs = int(rg_stats[1])
+    slices, slices_met, slices_walked = (int(v) for v in rg_stats[4:7])
+    met_share = 100 * slices_met / slices if slices else None
+    walked_share = 100 * slices_walked / slices if slices else None
     comp_bytes = int(group.clens.sum())
     k4_bound = bound(comp_bytes + 24 * pages, 28 * segs + pages)
     # A walk of the tags alone skips the literals' bytes: its least read.
@@ -1139,7 +1145,9 @@ def streams_phase(card: str, dev) -> dict:
                               iters=1, warmup=0) * 1e3
     sub_ms = time_device_fn(cuda_segment.segment_streams, sub) * 1e3
     k4_smem, k4_per_sm = cuda_segment.occupancy()
-    print(f"[17 streams] K4: {k4_smem} bytes of shared memory a block, {k4_per_sm} blocks an SM", flush=True)
+    print(f"[17 streams] K4: {k4_smem} bytes of shared memory a block, {k4_per_sm} blocks an SM; on the row group "
+          f"{slices} slices charted, {slices_met} met ({met_share}%), {slices_walked} walked ({walked_share}%)",
+          flush=True)
     print(f"[17 streams] on {card}, one row group ({pages} pages, {comp_bytes} stream bytes, "
           f"{int(group.ulens.sum())} page bytes, {segs} segments, {payload} of the stream bytes literals' "
           f"payload): K4 {k4_ms:.4f} ms (bound {k4_bound[0]:.4f}, {k4_bound[1]}, with every stream byte read; "
@@ -1163,6 +1171,10 @@ def streams_phase(card: str, dev) -> dict:
         "library_ms": None,
         "ragged_k1_ms": k1_ms,
         "ragged_k1_bound_ms": k1_bound[0],
+        "blocks_per_sm": k4_per_sm,
+        "slices": slices,
+        "slices_met_share": met_share,
+        "slices_walked_share": walked_share,
     }
 
 

@@ -26,17 +26,24 @@ is not ok); the rows it does not fill are empty (clen = ulen = 0). It
 returns ``(rows, stream_ok, stats)``: ``rows`` the table's columns (in
 int64, out int64 as offsets into ``comp`` and the output, clen int32,
 ulen int32, stream int32; [capacity]), ``stream_ok`` uint8[n], and
-``stats`` int64[4]: rows reserved (the rows the table holds, first), rows
-that hold a segment, boundaries merged away, streams taken whole.
+``stats`` int64[7]: rows reserved (the rows the table holds, first), rows
+that hold a segment, boundaries merged away, streams taken whole; then the
+kernel's slices of long streams: charted, met (the join found the true
+chain on a record of the slice's chart, or never entered it) and walked
+(the join stepped a tag of it by the scan's rule). The plain version
+charts no slices: its last three are 0.
 
 A CUDA buffer launches the kernel on the current stream and returns
 without synchronising; the table's row order is the order in which the
-streams reserved their rows. A CPU buffer runs ``segment_streams_plain``,
-which reserves in stream order. The counters ``streams.streams``,
-``streams.segments``, ``streams.merged`` and ``streams.whole`` take each
-call's stats: on the CPU at once, on a card once its small copy to the host
-has landed, at a later call (none waits for it); a launch counts under
-``k4.launches``.
+streams reserved their rows. The kernel's scratch (its counts and list of
+long streams, zeroed, and a summary a slice) is sized from n and the
+buffer's length. A CPU buffer runs ``segment_streams_plain``, which
+reserves in stream order. The counters ``streams.streams``,
+``streams.segments``, ``streams.merged``, ``streams.whole``,
+``streams.slices``, ``streams.slices_met`` and ``streams.slices_walked``
+take each call's stats: on the CPU at once, on a card once its small copy to
+the host has landed, at a later call (none waits for it); a launch counts
+under ``k4.launches``.
 """
 
 from __future__ import annotations
@@ -57,10 +64,10 @@ SEGMENT = 1 << 16  # a segment closes at the first tag at or past this much outp
 MAX_SEGMENT = 1 << 17  # the most output a segment may hold
 MAX_OFFSET = 0x1FFFF
 MAX_LITERAL = 0x1FFF8
-STATS = ("rows", "segments", "merged", "whole")
+STATS = ("rows", "segments", "merged", "whole", "slices", "slices_met", "slices_walked")
 SEGMENTED, WHOLE, CORRUPT = 0, -1, -2
 
-# Each card call's stats on their way to the host: (event, pinned int64[5]).
+# Each card call's stats on their way to the host: (event, pinned int64[1 + len(STATS)]).
 _pending: collections.deque = collections.deque()
 _pending_lock = threading.Lock()
 
@@ -111,18 +118,30 @@ def segment_streams(comp, starts, clens, ulens, out_starts, out_len: int):
                 torch.empty(capacity, dtype=torch.int32, device=dev), torch.empty(capacity, dtype=torch.int32, device=dev),
                 torch.empty(capacity, dtype=torch.int32, device=dev))
         ok = torch.empty(n, dtype=torch.uint8, device=dev)
-        stats = torch.zeros(len(STATS), dtype=torch.int64, device=dev)
+        lib = kernels.load("segment_streams")
+        ctl_words, pool, summary_bytes = scratch(lib, comp.numel(), n)
+        ctl = torch.zeros(ctl_words, dtype=torch.int64, device=dev)
+        stats = ctl[: len(STATS)]
         if n:
-            fn = kernels.load("segment_streams").snappy_cuda_segment_streams
+            sums = torch.empty(pool * summary_bytes, dtype=torch.uint8, device=dev)
             with torch.cuda.device(dev), trace_annotation("k4.launch"):
-                rc = fn(comp.data_ptr(), comp.numel(), starts.data_ptr(), clens.data_ptr(), ulens.data_ptr(),
-                        out_starts.data_ptr(), out_len, n, capacity, *(t.data_ptr() for t in rows), ok.data_ptr(),
-                        stats.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                rc = lib.snappy_cuda_segment_streams(
+                    comp.data_ptr(), comp.numel(), starts.data_ptr(), clens.data_ptr(), ulens.data_ptr(),
+                    out_starts.data_ptr(), out_len, n, capacity, *(t.data_ptr() for t in rows), ok.data_ptr(),
+                    ctl.data_ptr(), sums.data_ptr(), pool, torch.cuda.current_stream(dev).cuda_stream)
             kernels.check(rc, "segment_streams launch")
             count("k4.launches")
             with torch.cuda.device(dev):
                 _queue(n, stats)
         return rows, ok, stats
+
+
+def scratch(lib, comp_len: int, n: int) -> tuple[int, int, int]:
+    """(int64 words of the kernel's zeroed counts and list, summaries, bytes
+    a summary) for n streams in ``comp_len`` bytes."""
+    ctl, pool, summary = ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int64()
+    lib.snappy_cuda_segment_streams_scratch(comp_len, n, ctypes.byref(ctl), ctypes.byref(pool), ctypes.byref(summary))
+    return ctl.value, pool.value, summary.value
 
 
 def occupancy() -> tuple[int, int]:
@@ -270,7 +289,7 @@ def segment_streams_plain(comp, starts, clens, ulens, out_starts, out_len: int, 
     cols = [np.zeros(capacity, np.int64), np.zeros(capacity, np.int64), np.zeros(capacity, np.int32),
             np.zeros(capacity, np.int32), np.zeros(capacity, np.int32)]
     ok = np.zeros(n, np.uint8)
-    stats = [0, 0, 0, 0]
+    stats = [0] * len(STATS)
     for s, (start, clen, ulen, out0) in enumerate(zip(starts.tolist(), clens.tolist(), ulens.tolist(),
                                                       out_starts.tolist())):
         fits = 0 <= start <= len(buf) - clen and clen >= 0 and ulen >= 0 and 0 <= out0 <= out_len - ulen

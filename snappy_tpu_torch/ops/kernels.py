@@ -45,7 +45,9 @@ ENTRIES = {
     },
     "segment_streams": {
         "snappy_cuda_segment_streams": (
-            _INT, [_PTR, _I64, _PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]),
+            _INT, [_PTR, _I64, _PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                   _I64, _PTR]),
+        "snappy_cuda_segment_streams_scratch": (_INT, [_I64, _I64, _PTR, _PTR, _PTR]),
         "snappy_cuda_segment_streams_occupancy": (_INT, [_PTR, _PTR]),
     },
     "encode_blocks": {
