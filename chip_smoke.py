@@ -227,6 +227,9 @@ import time
 
 import numpy as np
 
+from snappy_tpu_torch.tools.corpus import MIX as CORPUS
+from snappy_tpu_torch.tools.corpus import corpus_stream, read
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 BLOCK = 1 << 16
 ANY = object()  # a case whose result only has to agree between kernel and plain version
@@ -245,11 +248,6 @@ SLEEP_PROBE_CYCLES = 20_000_000
 # cores, taken for the codec's integer operations (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
-# The same mix, in the same order, as bench.py's corpus stream.
-CORPUS = [
-    "alice29.txt", "html", "urls.10K", "fireworks.jpeg", "paper-100k.pdf",
-    "lcet10.txt", "plrabn12.txt", "geo.protodata", "kppkn.gtb", "sample-tweet.json",
-]
 # The probe kernels: (launch count key, kernel name, the TPU kernel's body).
 PROBE_KERNELS = [
     ("chain", "probe_chain", "benchmarks/exp_vector_walk.py:106"),
@@ -278,21 +276,6 @@ DENSITY_FILES = [
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def read(name: str) -> bytes:
-    with open(os.path.join(REPO, "testdata", name), "rb") as f:
-        return f.read()
-
-
-def corpus_stream(target: int) -> bytes:
-    bufs = [read(n) for n in CORPUS]
-    out, total, i = [], 0, 0
-    while total < target:
-        out.append(bufs[i % len(bufs)])
-        total += len(out[-1])
-        i += 1
-    return b"".join(out)[:target]
 
 
 def block_streams(nat, raw: bytes) -> tuple[list[bytes], np.ndarray]:
@@ -1184,7 +1167,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
     import snappy_tpu_torch
     from snappy_tpu_torch import CorruptInputError
     from snappy_tpu_torch.core import varint

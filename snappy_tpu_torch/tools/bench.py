@@ -97,7 +97,7 @@ from ..ops.host import blockify, to_device
 from ..parallel import distributed, streaming
 from ..utils import profiling
 from ..utils.metrics import Metrics, device_times
-from .profile_stream import corpus_stream
+from .corpus import corpus_stream
 
 # The Julia reference's uncompress rate on its 644 MB stream (BASELINE.md).
 BASELINE_DECODE_GBPS = 0.247

@@ -3,7 +3,7 @@ extension, and against another copy of it, in turns.
 
     python -m snappy_tpu_torch.tools.profile_array [--bytes N] [--turns 3] [--source PATH] [--device DEV]
 
-Encodes the rows of N bytes of the corpus mix (``profile_stream.corpus_stream``;
+Encodes the rows of N bytes of the corpus mix (``corpus.corpus_stream``;
 default 64 MiB, ``chip_smoke.py``'s main size, whose 973 rows routing leaves
 on the device) with ``ops/encode_array.py``:
 - one call split by stage (candidates, the extension's chain links,
@@ -35,7 +35,7 @@ import torch
 from ..ops import encode_array, route
 from ..ops.host import blockify, to_device
 from ..utils.metrics import time_device_fn
-from .profile_stream import corpus_stream
+from .corpus import corpus_stream
 
 BLOCK = 1 << 16
 # The functions of encode_array.py timed by ``split``, by stage name.

@@ -3,17 +3,14 @@
     python -m snappy_tpu_torch.tools.profile_decode [--source PATH] [--window BYTES] [--ring BYTES]
 
 Builds an instrumented copy of ``csrc/decode_blocks.cu`` (or of another
-copy of the block decoder at PATH: the tool knows this source's phases and
-those of the decoder before it, which staged the whole compressed row in
-shared memory and moved the output in device memory) into the build
-directory. Each thread of a block reads ``clock64()`` around each phase:
-staging compressed bytes in shared memory, literal moves, near and far copy
-moves, window flushes, and the tail (the last flush and the zeros past the
-output); the walk (parsing the tags and their checks) is the rest of the
+copy of the windowed decoder at PATH, such as a parent commit's) into the
+build directory (``kernel_profile``). Each thread of a block reads
+``clock64()`` around each phase: staging compressed bytes in shared memory,
+literal moves, near and far copy moves, window flushes, and the tail (the
+last flush and the zeros past the output); the walk (parsing the tags and their checks) is the rest of the
 block's cycles. Thread 0 counts tags, literals, near and far copies and
 stagings, and adds its totals to device counters. A copy is near when its
-offset is at most the window's reach (window less 64 bytes): the windowed
-source's own, or for the staged one, ``--window``'s.
+offset is at most the window's reach (window less 64 bytes).
 
 Then, on batches of 64 KiB blocks encoded by the native encoder (the corpus
 mix that ``chip_smoke.py`` decodes, and 256 blocks each of alice29.txt,
@@ -25,7 +22,7 @@ all rows and the plain version's on sampled rows: cycles a block by phase,
 tags, literals and near and far copies a block, cycles a tag, and the
 shared memory a block and blocks resident per SM at the launch's size
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). ``--window`` and
-``--ring`` build the windowed source with another window or ring (bytes).
+``--ring`` build the source with another window or ring (bytes).
 The card's name and power limit come first, a ``{"profile_decode": [...]}``
 line last. Requires a CUDA card and nvcc; ``measure`` and the batches also
 run on the CPU, through the plain version, without cycles.
@@ -35,12 +32,12 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import os
 import re
 import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -48,18 +45,11 @@ import torch
 
 from ..core import varint
 from ..native import runtime as nat
-from ..native.build import build_shared
 from ..ops import cuda_decode, decode_torch, kernels
-from ..ops.host import pack_rows
 from ..utils.metrics import time_device_fn
+from . import kernel_profile
+from .corpus import BLOCK, FILES, MIX, REPO, block_batch, read, repeat_to
 
-BLOCK = 1 << 16
-REPO = Path(__file__).resolve().parents[2]
-MIX = [
-    "alice29.txt", "html", "urls.10K", "fireworks.jpeg", "paper-100k.pdf",
-    "lcet10.txt", "plrabn12.txt", "geo.protodata", "kppkn.gtb", "sample-tweet.json",
-]
-FILES = ["alice29.txt", "html", "kppkn.gtb", "fireworks.jpeg"]
 # Counter slots: the timed phases, the block's total, then the counts. The
 # walk is the total less the timed phases.
 PHASES = ["stage", "literals", "near copies", "far copies", "flushes", "tail"]
@@ -92,53 +82,16 @@ _EXTERN_END = '}  // extern "C"\n'
 _TAG, _LIT, _NEAR, _FAR, _STAGE = (TOTAL + 1 + i for i in range(len(COUNTS)))
 
 
-def _shared(begin_after: str, extra: str = "") -> list[tuple]:
-    return [
-        ("namespace {\n", _COUNTERS + _MACROS + "namespace {\n"),
-        (begin_after, begin_after + _BEGIN + extra),
-        ('extern "C" {\n', _READ),
-    ]
-
-
-def _probes(layout: str, near: int) -> list[tuple]:
-    """(text in the decoder source, the same text with its counters[, the
-    times the text occurs, if not once])."""
-    if layout == "staged":
-        # The one-warp decoder that stages the whole row in shared memory and
-        # moves bytes in device memory (no window, no flushes).
-        occupancy = (
-            "int prof_occupancy(int64_t row_c, int* smem, int* blocks) {\n"
-            "  *smem = int((row_c + 15) & ~int64_t(15));\n"
-            "  cudaError_t err = cudaFuncSetAttribute(decode_blocks_kernel<true>,\n"
-            "                                         cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);\n"
-            "  if (err != cudaSuccess) return err;\n"
-            "  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, decode_blocks_kernel<true>, kWarp, *smem);\n"
-            "}\n"
-        )
-        return _shared("  uint8_t* dst = out + row * out_size;\n") + [
-            ("  const uint8_t* in = src;\n", "  PROF_T0;\n  ++prof_c[%d];\n  const uint8_t* in = src;\n" % _STAGE),
-            ("  int64_t ip = 0, op = 0;\n", "  PROF_ADD(0);\n  int64_t ip = 0, op = 0;\n"),
-            ("    const uint32_t c = in[ip];\n", "    ++prof_c[%d];\n    const uint32_t c = in[ip];\n" % _TAG),
-            ("      for (int64_t j = lane; j < lit; j += kWarp) dst[op + j] = in[tag_end + j];\n",
-             "      PROF_T0;\n      ++prof_c[%d];\n"
-             "      for (int64_t j = lane; j < lit; j += kWarp) dst[op + j] = in[tag_end + j];\n"
-             "      PROF_ADD(1);\n" % _LIT),
-            ("      const int64_t base = op - f;\n",
-             f"      PROF_T0;\n      prof_c[{_NEAR}] += f <= {near};\n      prof_c[{_FAR}] += f > {near};\n"
-             "      const int64_t base = op - f;\n"),
-            ("      op += len;\n", f"      if (f <= {near}) PROF_ADD(2); else PROF_ADD(3);\n      op += len;\n"),
-            ("  __syncwarp();\n  ok = ok && op == ulen;\n", "  PROF_T0;\n  __syncwarp();\n  ok = ok && op == ulen;\n"),
-            ("    total_out[row] = static_cast<int32_t>(op);\n  }\n}\n",
-             "    total_out[row] = static_cast<int32_t>(op);\n  }\n  PROF_ADD(5);\n" + _END + "}\n"),
-            (_EXTERN_END, occupancy + _EXTERN_END),
-        ]
-    # The windowed decoder: its ring stagings (three call sites), the moves
-    # (each ends at the warp sync after it; a literal moved alone spans its
-    # pieces, the flushes between them included), the flushes of full halves
-    # and the tail. The walk is the rest: the chase, the lanes' reads of their
-    # tags, the scan and the checks.
+def probes(window: int | None = None) -> list[tuple]:
+    """K1's probes (``kernel_profile``): its ring stagings (three call
+    sites), the moves (each ends at the warp sync after it; a literal moved
+    alone spans its pieces, the flushes between them included), the flushes
+    of full halves and the tail. The walk is the rest: the chase, the lanes'
+    reads of their tags, the scan and the checks. A copy is near when its
+    offset is at most ``window`` (default: this package's) less 64 bytes."""
+    near = (window or window_bytes()) - NEAR_MARGIN
     occupancy = (
-        "int prof_occupancy(int64_t, int* smem, int* blocks) {\n"
+        "int prof_occupancy(int64_t, int64_t, int* smem, int* blocks) {\n"
         "  return snappy_cuda_decode_blocks_occupancy(smem, blocks);\n"
         "}\n"
     )
@@ -151,7 +104,11 @@ def _probes(layout: str, near: int) -> list[tuple]:
     )
     move_end = "      // Lanes read bytes other lanes wrote for earlier tags.\n"
     flush_end = "        flushed += kHalf;\n        __syncwarp();\n      }\n    }\n  }\n"
-    return _shared("  uint8_t* dst = out + row * out_size;\n", "  int prof_k = 0;\n") + [
+    begin_after = "  uint8_t* dst = out + row * out_size;\n"
+    return [
+        ("namespace {\n", _COUNTERS + _MACROS + "namespace {\n"),
+        (begin_after, begin_after + _BEGIN + "  int prof_k = 0;\n"),
+        ('extern "C" {\n', _READ),
         ("namespace {\n", stage + "namespace {\n"),
         ("stage(ring, src, ", "PROF_STAGE(ring, src, ", 3),
         ("      // A literal with a length trailer or past the ring, alone.\n",
@@ -177,11 +134,6 @@ def _probes(layout: str, near: int) -> list[tuple]:
     ]
 
 
-def layout_of(src: str) -> str:
-    """"window" for the windowed decoder, "staged" for the one before it."""
-    return "window" if "SNAPPY_K1_WINDOW" in src else "staged"
-
-
 def window_bytes(src: str | None = None) -> int:
     """The window a decoder source keeps by default (this package's)."""
     src = (kernels.CSRC / "decode_blocks.cu").read_text() if src is None else src
@@ -192,65 +144,6 @@ def ring_bytes(src: str | None = None) -> int:
     """The compressed bytes a decoder source stages at a time."""
     src = (kernels.CSRC / "decode_blocks.cu").read_text() if src is None else src
     return int(re.search(r"#define SNAPPY_K1_RING (\d+)", src).group(1))
-
-
-def instrument(src: str, window: int | None = None) -> tuple[str, str]:
-    """(layout, the source with its counters) of a decoder source; near
-    copies reach at most ``window`` less 64 bytes (default: the source's
-    window, or this package's for the staged layout)."""
-    layout = layout_of(src)
-    near = (window or window_bytes(src if layout == "window" else None)) - NEAR_MARGIN
-    for old, new, *times in _probes(layout, near):
-        times = times[0] if times else 1
-        if src.count(old) != times:
-            raise RuntimeError(f"the decoder source ({layout} layout) does not hold {old!r} {times} time(s)")
-        src = src.replace(old, new)
-    return layout, src
-
-
-def build(source: Path, window: int | None = None, ring: int | None = None):
-    """(layout, instrumented library, uninstrumented library) of ``source``,
-    the windowed one built with ``window`` and ``ring`` where given."""
-    text = source.read_text()
-    layout, probed = instrument(text, window)
-    defines = []
-    if layout == "window":
-        defines += [f"-DSNAPPY_K1_WINDOW={window}"] if window else []
-        defines += [f"-DSNAPPY_K1_RING={ring}"] if ring else []
-    elif ring:
-        raise ValueError("the staged decoder has no ring")
-    out = kernels.CSRC.parent / "_build"
-    out.mkdir(parents=True, exist_ok=True)
-    compiler = [str(kernels.nvcc_path()), *kernels.NVCC_FLAGS, *defines]
-
-    def one(item):
-        stem, body = item
-        path = out / f"{stem}.cu"
-        path.write_text(body)
-        lib = ctypes.CDLL(str(build_shared(compiler, [path], stem)))
-        restype, argtypes = kernels.ENTRIES["decode_blocks"]["snappy_cuda_decode_blocks"]
-        lib.snappy_cuda_decode_blocks.restype, lib.snappy_cuda_decode_blocks.argtypes = restype, argtypes
-        return lib
-
-    with ThreadPoolExecutor(2) as pool:
-        probed_lib, timed_lib = pool.map(one, (("decode_profiled", probed), ("decode_timed", text)))
-    probed_lib.prof_read.argtypes = [ctypes.c_void_p]
-    probed_lib.prof_occupancy.argtypes = [ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
-    return layout, probed_lib, timed_lib
-
-
-def launch(lib: ctypes.CDLL, comp, clens, ulens, out_size: int):
-    """(out, ok, total) of the decoder library ``lib`` on a CUDA batch."""
-    b, c = comp.shape
-    out = torch.empty((b, out_size), dtype=torch.uint8, device=comp.device)
-    ok = torch.empty(b, dtype=torch.bool, device=comp.device)
-    total = torch.empty(b, dtype=torch.int32, device=comp.device)
-    rc = lib.snappy_cuda_decode_blocks(
-        comp.data_ptr(), clens.data_ptr(), ulens.data_ptr(), b, c, out_size,
-        out.data_ptr(), ok.data_ptr(), total.data_ptr(), torch.cuda.current_stream(comp.device).cuda_stream,
-    )
-    kernels.check(rc, "profiled decode_blocks launch")
-    return out, ok, total
 
 
 class _Stream:
@@ -334,7 +227,7 @@ def window_rows(window: int | None = None, ring: int | None = None) -> dict[str,
             wide.literal(rng.integers(0, 256, 1 + k % 7, dtype=np.uint8).tobytes())
         wide.copy(4 + k % 61, 1 + k % 100, four=True)
     rows["copy4-across-the-ring"] = wide.row()
-    text = (REPO / "testdata" / "alice29.txt").read_bytes()
+    text = read("alice29.txt")
     for name, raw in (("segment-128k", text[: 2 * BLOCK]), ("text-across-flushes", text[: 3 * window + 1000])):
         stream = nat.compress(raw)
         _, head = varint.parse32(np.frombuffer(stream, np.uint8), 0)
@@ -342,30 +235,10 @@ def window_rows(window: int | None = None, ring: int | None = None) -> dict[str,
     return rows
 
 
-def repeat_to(data: list[bytes], n: int) -> bytes:
-    out, total, i = [], 0, 0
-    while total < n:
-        out.append(data[i % len(data)])
-        total += len(out[-1])
-        i += 1
-    return b"".join(out)[:n]
-
-
-def block_batch(raw: bytes, n: int = BLOCK):
-    """The native encoder's streams of the ``n``-byte blocks of ``raw`` as
-    the block decoder's arguments: (comp, clens, ulens, out_size)."""
-    rows = len(raw) // n
-    buf = np.frombuffer(raw[: rows * n], np.uint8).reshape(rows, n).copy()
-    streams = nat.compress_rows(buf, np.full(rows, n, np.int32), np.arange(rows))
-    clens = np.array([len(s) for s in streams], np.int64)
-    comp = pack_rows(np.frombuffer(b"".join(streams), np.uint8), np.concatenate([[0], np.cumsum(clens)[:-1]]), clens)
-    return comp, clens.astype(np.int32), np.full(rows, n, np.int32), n
-
-
 def batches(mix_blocks: int = 1024, file_blocks: int = 256, n: int = BLOCK) -> dict:
     """{label: (comp, clens, ulens, out_size)}: the corpus mix and
     ``file_blocks`` blocks of each of FILES."""
-    files = {name: (REPO / "testdata" / name).read_bytes() for name in MIX}
+    files = {name: read(name) for name in MIX}
     out = {f"corpus mix, {mix_blocks} blocks": block_batch(repeat_to([files[m] for m in MIX], mix_blocks * n), n)}
     for name in FILES:
         out[f"{name}, {file_blocks} blocks"] = block_batch(repeat_to([files[name]], file_blocks * n), n)
@@ -374,8 +247,8 @@ def batches(mix_blocks: int = 1024, file_blocks: int = 256, n: int = BLOCK) -> d
 
 def measure(label: str, comp, clens, ulens, out_size: int, dev, libs=None, check_rows: int = 4) -> dict:
     """One batch's record: the kernel's time (``cuda_decode.decode_blocks``;
-    its plain version on the CPU) and, with ``libs`` = (layout,
-    instrumented, uninstrumented) on the card, both builds' times, cycles a
+    its plain version on the CPU) and, with ``libs`` = (instrumented,
+    uninstrumented library) on the card, both builds' times, cycles a
     block by phase, tags, literals and copies a block, cycles a tag and the
     occupancy. Every row must decode; the kernel's output must equal the
     plain version's on ``check_rows`` sampled rows, and both builds' the
@@ -394,21 +267,20 @@ def measure(label: str, comp, clens, ulens, out_size: int, dev, libs=None, check
         raise RuntimeError(f"{label}: the decoder differs from its plain version")
     if libs is None:
         return rec
-    layout, probed, timed = libs
-    rec["layout"] = layout
-    rec["source_ms"] = time_device_fn(lambda *a: launch(timed, *a), args, iters=iters, warmup=1) * 1e3
-    rec["profiled_ms"] = time_device_fn(lambda *a: launch(probed, *a), args, iters=iters, warmup=1) * 1e3
-    probed.prof_reset()
-    got = launch(probed, *args)
+    probed, timed = (functools.partial(kernel_profile.launch_decoder, lib.snappy_cuda_decode_blocks) for lib in libs)
+    rec["source_ms"] = time_device_fn(timed, args, iters=iters, warmup=1) * 1e3
+    rec["profiled_ms"] = time_device_fn(probed, args, iters=iters, warmup=1) * 1e3
+    libs[0].prof_reset()
+    got = probed(*args)
     torch.cuda.synchronize()
-    again = launch(timed, *args)
+    again = timed(*args)
     if not all(torch.equal(x, y) for x, y in zip((*got, *again), (*want, *want))):
-        raise RuntimeError(f"{label}: the {layout} source's kernel differs from the decoder")
+        raise RuntimeError(f"{label}: the source's kernel differs from the decoder")
     counts = (ctypes.c_ulonglong * SLOTS)()
-    probed.prof_read(counts)
+    libs[0].prof_read(counts)
     per = [c / b for c in counts]
     smem, blocks = ctypes.c_int(), ctypes.c_int()
-    kernels.check(probed.prof_occupancy(comp.shape[1], ctypes.byref(smem), ctypes.byref(blocks)), "occupancy")
+    kernels.check(libs[0].prof_occupancy(comp.shape[1], out_size, ctypes.byref(smem), ctypes.byref(blocks)), "occupancy")
     total = per[TOTAL]
     phases = dict(zip(PHASES, per[:TOTAL]))
     rec["cycles_per_block"] = total
@@ -430,7 +302,7 @@ def line(r: dict) -> str:
     shares = ", ".join(f"{k} {v:.0f} ({v / total:.1%})" for k, v in r["phases"].items())
     counts = ", ".join(f"{r[k.replace(' ', '_') + '_per_block']:.1f} {k}" for k in COUNTS)
     per_tag = f"{r['cycles_per_tag']:.1f} cycles a tag (walk {r['walk_cycles_per_tag']:.1f})" if r["tags_per_block"] else "no tags"
-    return (f"{s}; {r['layout']} source {r['source_ms']:.4f} ms, instrumented {r['profiled_ms']:.4f} ms; "
+    return (f"{s}; source {r['source_ms']:.4f} ms, instrumented {r['profiled_ms']:.4f} ms; "
             f"{r['smem_per_block']} bytes of shared memory a block, {r['blocks_per_sm']} blocks an SM; "
             f"cycles a block {total:.0f}: {shares}; a block: {counts}; {per_tag}")
 
@@ -439,8 +311,8 @@ def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(prog="python -m snappy_tpu_torch.tools.profile_decode")
     ap.add_argument("--source", type=Path, default=kernels.CSRC / "decode_blocks.cu",
                     help="the decoder source to instrument (default: this package's)")
-    ap.add_argument("--window", type=int, help="window bytes (windowed source: built with it; staged: near copies)")
-    ap.add_argument("--ring", type=int, help="ring bytes of the windowed source")
+    ap.add_argument("--window", type=int, help="window bytes to build the source with")
+    ap.add_argument("--ring", type=int, help="ring bytes to build the source with")
     try:
         opts = ap.parse_args(argv)
     except SystemExit:
@@ -454,8 +326,15 @@ def main(argv: list[str]) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     )
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    libs = build(opts.source, opts.window, opts.ring)
-    print(f"source {os.path.relpath(opts.source, REPO)}, {libs[0]} layout"
+    text = opts.source.read_text()
+    defines = [f"-DSNAPPY_K1_WINDOW={opts.window}"] if opts.window else []
+    defines += [f"-DSNAPPY_K1_RING={opts.ring}"] if opts.ring else []
+    built = kernel_profile.build("decode_blocks", {
+        "decode_profiled": kernel_profile.instrument(text, probes(opts.window or window_bytes(text))),
+        "decode_timed": text,
+    }, defines)
+    libs = built["decode_profiled"], built["decode_timed"]
+    print(f"source {os.path.relpath(opts.source, REPO)}"
           f"{f', window {opts.window}' if opts.window else ''}{f', ring {opts.ring}' if opts.ring else ''}", flush=True)
     records = []
     for label, (comp, clens, ulens, out_size) in batches().items():

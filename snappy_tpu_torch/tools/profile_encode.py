@@ -3,10 +3,9 @@
     python -m snappy_tpu_torch.tools.profile_encode [--source PATH]
 
 Builds an instrumented copy of ``csrc/encode_blocks.cu`` (or of another copy
-of the encoder at PATH: the tool knows this source's phases and those of
-the encoder before it, whose parse was a walk by one warp) into the build
-directory: thread 0 of each block reads ``clock64()`` where each phase
-starts (stage, hash chain, candidates, the chase or walk, the drains, the
+of the encoder at PATH, such as a parent commit's) into the build directory
+(``kernel_profile``): thread 0 of each block reads ``clock64()`` where each
+phase starts (stage, hash chain, candidates, the chase, the drains, the
 tail and zeroing), counts the takes it parses, and adds its totals to
 device counters. Then, on batches of 64 KiB and of 32 KiB blocks (the
 encoder's two variants, picked by the row width), it prints the kernel's
@@ -45,18 +44,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..native.build import build_shared
 from ..ops import cuda_encode, encode_torch, kernels, route
 from ..ops.host import blockify
 from ..utils.metrics import time_device_fn
+from . import kernel_profile
+from .corpus import BLOCK, FILES, MIX, REPO, read, repeat_to
 
-BLOCK = 1 << 16
-REPO = Path(__file__).resolve().parents[2]
-MIX = [
-    "alice29.txt", "html", "urls.10K", "fireworks.jpeg", "paper-100k.pdf",
-    "lcet10.txt", "plrabn12.txt", "geo.protodata", "kppkn.gtb", "sample-tweet.json",
-]
-FILES = ["alice29.txt", "html", "kppkn.gtb", "fireworks.jpeg"]
 MIN_PROFIT = 2
 # The encoder's hash: the top bits of key * HASH_MUL, mod 2**32, two fewer
 # than a position of the variant's blocks has.
@@ -84,61 +77,20 @@ _READ = (
     'extern "C" {\nint prof_read(unsigned long long* h) { return cudaMemcpyFromSymbol(h, g_prof, sizeof(g_prof)); }\n'
     "int prof_reset() { unsigned long long z[8] = {0}; return cudaMemcpyToSymbol(g_prof, z, sizeof(z)); }\n"
 )
-_SHARED = [
+# K2's probes (``kernel_profile``).
+PROBES = [
     ("namespace {\n", _COUNTERS + _MARK + "namespace {\n"),
     ("  const uint8_t* src = blocks + r * row_w;\n", "  const uint8_t* src = blocks + r * row_w;\n" + _BEGIN),
     ("  // 2. Hash chain", "  PROF_MARK(1);\n  // 2. Hash chain"),
     ("  // 3. Candidates", "  PROF_MARK(2);\n  // 3. Candidates"),
     ('extern "C" {\n', _READ),
+    ("    // 4a. The chase", "    PROF_MARK(3);\n    // 4a. The chase"),
+    ("    // 4b. The drain", "    PROF_MARK(4);\n    // 4b. The drain"),
+    ("        rec[n++].x = ", "        ++prof_c[7];\n        rec[n++].x = "),
+    ("  // 5. The tail literal", "  PROF_MARK(5);\n  // 5. The tail literal"),
+    ("  for (int64_t i = end + tid; i < out_w; i += kThreads) dst[i] = 0;\n}\n",
+     "  for (int64_t i = end + tid; i < out_w; i += kThreads) dst[i] = 0;\n" + _END + "}\n"),
 ]
-# (text in the kernel source, the same text with its counters), by layout:
-# the chase and drains of this source, and the walk by one warp before it.
-_PROBES = {
-    "chase": _SHARED + [
-        ("    // 4a. The chase", "    PROF_MARK(3);\n    // 4a. The chase"),
-        ("    // 4b. The drain", "    PROF_MARK(4);\n    // 4b. The drain"),
-        ("        rec[n++].x = ", "        ++prof_c[7];\n        rec[n++].x = "),
-        ("  // 5. The tail literal", "  PROF_MARK(5);\n  // 5. The tail literal"),
-        ("  for (int64_t i = end + tid; i < out_w; i += kThreads) dst[i] = 0;\n}\n",
-         "  for (int64_t i = end + tid; i < out_w; i += kThreads) dst[i] = 0;\n" + _END + "}\n"),
-    ],
-    "walk": _SHARED + [
-        ("  // 4. The walk and emission, by warp 0.", "  PROF_MARK(3);\n  // 4. The walk and emission, by warp 0."),
-        ("      anchor = ip + m;\n", "      anchor = ip + m;\n      ++prof_c[7];\n"),
-        ("  // 5. Zero the rest of the output row.", "  PROF_MARK(5);\n  // 5. Zero the rest of the output row."),
-        ("  for (int64_t i = *row_op + tid; i < out_w; i += kThreads) dst[i] = 0;\n}\n",
-         "  for (int64_t i = *row_op + tid; i < out_w; i += kThreads) dst[i] = 0;\n" + _END + "}\n"),
-    ],
-}
-
-
-def instrument(src: str) -> tuple[str, str]:
-    """(layout, the source with its counters) of an encoder source."""
-    layout = "chase" if "// 4a. The chase" in src else "walk"
-    for old, new in _PROBES[layout]:
-        if src.count(old) != 1:
-            raise RuntimeError(f"the encoder source ({layout} layout) does not hold {old!r} once")
-        src = src.replace(old, new)
-    return layout, src
-
-
-def build(source: Path) -> tuple[str, ctypes.CDLL, ctypes.CDLL]:
-    """(layout, instrumented library, uninstrumented library) of ``source``."""
-    text = source.read_text()
-    layout, probed = instrument(text)
-    out = kernels.CSRC.parent / "_build"
-    out.mkdir(parents=True, exist_ok=True)
-    compiler = [str(kernels.nvcc_path()), *kernels.NVCC_FLAGS]
-    libs = []
-    for stem, body in (("encode_profiled", probed), ("encode_timed", text)):
-        path = out / f"{stem}.cu"
-        path.write_text(body)
-        lib = ctypes.CDLL(str(build_shared(compiler, [path], stem)))
-        restype, argtypes = kernels.ENTRIES["encode_blocks"]["snappy_cuda_encode_blocks"]
-        lib.snappy_cuda_encode_blocks.restype, lib.snappy_cuda_encode_blocks.argtypes = restype, argtypes
-        libs.append(lib)
-    libs[0].prof_read.argtypes = [ctypes.c_void_p]
-    return layout, libs[0], libs[1]
 
 
 def launch(lib: ctypes.CDLL, blocks: torch.Tensor, blens: torch.Tensor, min_profit: int = MIN_PROFIT):
@@ -232,10 +184,9 @@ def chase_rows(block_bits: int = 16) -> dict[str, bytes]:
     exactly full, and keys that collide in its hash. Named by the block's
     size (``64k``, ``32k``) where it fills one."""
     block, chunk, size = 1 << block_bits, record_chunk(block_bits), f"{1 << (block_bits - 10)}k"
-    text = (REPO / "testdata" / "alice29.txt").read_bytes()[:block]
     return {
-        "text-more-takes-than-a-chunk": text,
-        f"html-{size}": (REPO / "testdata" / "html").read_bytes()[:block],
+        "text-more-takes-than-a-chunk": read("alice29.txt")[:block],
+        f"html-{size}": read("html")[:block],
         **{f"match-{n}-{'far' if far else 'near'}": exact_matches(n, far) for n in (7, 8, 9) for far in (False, True)},
         f"rle-{size}": b"q" * block,
         f"zeros-{size}": b"\x00" * block,
@@ -247,15 +198,6 @@ def chase_rows(block_bits: int = 16) -> dict[str, bytes]:
     }
 
 
-def repeat_to(data: list[bytes], n: int) -> bytes:
-    out, total, i = [], 0, 0
-    while total < n:
-        out.append(data[i % len(data)])
-        total += len(out[-1])
-        i += 1
-    return b"".join(out)[:n]
-
-
 def variant_bits(n: int) -> int:
     """The variant the launcher picks for blocks of n bytes: 15 (32 KiB)
     or 16 (64 KiB)."""
@@ -264,7 +206,7 @@ def variant_bits(n: int) -> int:
 
 def _mix(mix_blocks: int, n: int, label: str = "corpus mix") -> dict:
     """The device rows of the corpus mix in blocks of n bytes."""
-    files = [(REPO / "testdata" / name).read_bytes() for name in MIX]
+    files = [read(name) for name in MIX]
     buf, blens = blockify(np.frombuffer(repeat_to(files, mix_blocks * n), np.uint8), n)
     dev = np.setdiff1d(np.arange(len(blens)), route.host_blocks(buf, blens))
     return {f"{label}, {len(dev)} device blocks of {len(blens)}": (buf[dev], blens[dev])}
@@ -283,7 +225,7 @@ def batches(mix_blocks: int = 1024, file_blocks: int = 256, collision_rows=(1, 1
     collision rows."""
     out = _mix(mix_blocks, n)
     for name in FILES:
-        data = (REPO / "testdata" / name).read_bytes()
+        data = read(name)
         out[f"{name}, {file_blocks} blocks"] = blockify(np.frombuffer(repeat_to([data], file_blocks * n), np.uint8), n)
     return {**out, **_collisions(collision_rows, n)}
 
@@ -319,8 +261,8 @@ def narrow_batches(mix_blocks: int = 2048, lineitem_blocks: int = 2048, collisio
 
 def measure(label: str, blocks: np.ndarray, blens: np.ndarray, dev, libs=None, check_rows: int = 4) -> dict:
     """One batch's record: the kernel's time (``cuda_encode.encode_blocks``;
-    its plain version on the CPU) and, with ``libs`` = (layout,
-    instrumented, uninstrumented) on the card, the uninstrumented source's
+    its plain version on the CPU) and, with ``libs`` = (instrumented,
+    uninstrumented library) on the card, the uninstrumented source's
     time, its cycles a block by phase, takes a block and cycles a take. The
     instrumented output must equal the kernel's, and both the plain
     version's on ``check_rows`` sampled rows."""
@@ -340,15 +282,14 @@ def measure(label: str, blocks: np.ndarray, blens: np.ndarray, dev, libs=None, c
     if libs is None:
         return rec
     rec["smem_bytes"], rec["blocks_per_sm"] = cuda_encode.occupancy(blocks.shape[1])
-    layout, probed, timed = libs
-    rec["layout"] = layout
+    probed, timed = libs
     rec["source_ms"] = time_device_fn(lambda *a: launch(timed, *a), args[:2], iters=iters, warmup=1) * 1e3
     probed.prof_reset()
     got = launch(probed, *args[:2])
     torch.cuda.synchronize()
     again = launch(timed, *args[:2])
     if not all(torch.equal(x, y) for x, y in zip((*got, *again), (*want, *want))):
-        raise RuntimeError(f"{label}: the {layout} source's kernel differs from the encoder")
+        raise RuntimeError(f"{label}: the source's kernel differs from the encoder")
     counts = (ctypes.c_ulonglong * 8)()
     probed.prof_read(counts)
     per = [c / b for c in counts]
@@ -368,12 +309,12 @@ def line(r: dict) -> str:
         return s
     total = r["cycles_per_block"]
     shares = ", ".join(f"{k} {v:.0f} ({v / total:.1%})" for k, v in r["phases"].items())
-    s = (f"{s}; {r['layout']} source {r['source_ms']:.4f} ms; the {1 << (r['variant_bits'] - 10)} KiB variant, "
+    s = (f"{s}; source {r['source_ms']:.4f} ms; the {1 << (r['variant_bits'] - 10)} KiB variant, "
          f"{r['smem_bytes']} B a block, {r['blocks_per_sm']} an SM; cycles a block {total:.0f}: {shares}; ")
     if not r["takes_per_block"]:
         return s + "no takes"
     return (f"{s}{r['takes_per_block']:.1f} takes a block, {r['chase_cycles_per_take']:.1f} cycles a take in the "
-            f"{r['layout']}, {r['chase_and_drain_cycles_per_take']:.1f} with the drains")
+            f"chase, {r['chase_and_drain_cycles_per_take']:.1f} with the drains")
 
 
 def main(argv: list[str]) -> int:
@@ -393,8 +334,12 @@ def main(argv: list[str]) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     )
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    libs = build(opts.source)
-    print(f"source {os.path.relpath(opts.source, REPO)}, {libs[0]} layout", flush=True)
+    text = opts.source.read_text()
+    built = kernel_profile.build("encode_blocks", {
+        "encode_profiled": kernel_profile.instrument(text, PROBES), "encode_timed": text,
+    })
+    libs = built["encode_profiled"], built["encode_timed"]
+    print(f"source {os.path.relpath(opts.source, REPO)}", flush=True)
     records = []
     for label, (blocks, blens) in {**batches(), **narrow_batches(device=dev)}.items():
         records.append(measure(label, blocks, blens, dev, libs))

@@ -2,7 +2,7 @@
 
     python -m snappy_tpu_torch.tools.profile_mesh [--bytes N] [--shards 1,4] [--turns 7] [--device DEV]
 
-Codes N bytes of the corpus mix (``profile_stream.corpus_stream``; default
+Codes N bytes of the corpus mix (``corpus.corpus_stream``; default
 64 MiB, ``chip_smoke.py``'s main size) through ``compress_framed`` and
 ``uncompress_framed`` in one process: routed on ``device`` and over meshes
 of each shard count, every shard on ``device``; decoding the routed frame
@@ -26,7 +26,7 @@ import time
 import torch
 
 from ..parallel import distributed, host
-from .profile_stream import corpus_stream
+from .corpus import corpus_stream
 
 
 def variants(raw: bytes, device, shards: list[int]) -> dict:

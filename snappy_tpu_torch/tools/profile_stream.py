@@ -71,26 +71,9 @@ from ..ops import route
 from ..parallel import streaming
 from ..utils import profiling
 from ..utils.profiling import profile_to
+from .corpus import BLOCK, corpus_stream
 
-BLOCK = 1 << 16
-REPO = Path(__file__).resolve().parents[2]
-# chip_smoke.py's corpus mix, in bench.py's order.
-MIX = [
-    "alice29.txt", "html", "urls.10K", "fireworks.jpeg", "paper-100k.pdf",
-    "lcet10.txt", "plrabn12.txt", "geo.protodata", "kppkn.gtb", "sample-tweet.json",
-]
 LARGE_CONFIG_BYTES = 676_000_000
-
-
-def corpus_stream(target: int) -> bytes:
-    """``target`` bytes of the corpus files in turn."""
-    bufs = [(REPO / "testdata" / n).read_bytes() for n in MIX]
-    out, total, i = [], 0, 0
-    while total < target:
-        out.append(bufs[i % len(bufs)])
-        total += len(out[-1])
-        i += 1
-    return b"".join(out)[:target]
 
 
 # The names the stages are printed under, by span: a top-level call (the

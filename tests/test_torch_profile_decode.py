@@ -1,8 +1,8 @@
 """``tools/profile_decode.py`` on the CPU: its batches, its window rows and
 its measurement through the plain version at a small size, and its
-instrumented copies of both decoder layouts under the g++ emulation of
-``tests/test_torch_kernel_host.py``: this package's windowed source and the
-staged one before it (``tests/data/decode_blocks_staged.cu``).
+instrumented copy of this package's decoder source under the g++ emulation
+of ``tests/test_torch_kernel_host.py``. Its anchors are checked with K2's
+and K3's in ``tests/test_torch_kernel_profile.py``.
 
 With ``clock64()`` a per-thread counter, the instrumented copy's tags,
 literals and near and far copies must equal a walk of the same streams in
@@ -11,7 +11,6 @@ no more than the block's total. Tolerance: exact.
 """
 
 import ctypes
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,14 +20,14 @@ from snappy_tpu_torch.core import varint
 from snappy_tpu_torch.native import runtime as nat
 from snappy_tpu_torch.ops import decode_torch
 from snappy_tpu_torch.ops.kernels import CSRC
+from snappy_tpu_torch.tools import kernel_profile
 from snappy_tpu_torch.tools import profile_decode as tool
 
 from conftest import read_testdata
-from test_torch_kernel_host import HARNESS, PRELUDE, aligned_batch, build_emulation, emulation_source, run_emulation
+from test_torch_kernel_host import PRELUDE, aligned_batch, build_emulation, emulation_source, run_emulation
 from torch_helpers import native_body
 
 SMALL = 4096
-STAGED = Path(__file__).parent / "data" / "decode_blocks_staged.cu"
 
 _PROFILE_PRELUDE = r"""
 thread_local long long g_clock;
@@ -40,10 +39,6 @@ static inline unsigned long long atomicAdd(unsigned long long* a, unsigned long 
 _PROFILE_READ = r"""
 extern "C" unsigned long long* emu_prof() { return g_prof; }
 """
-_STAGED_SUBSTITUTIONS = [
-    ("#include <cuda_runtime.h>", ""),
-    ("extern __shared__ __align__(16) uint8_t smem[];", "uint8_t* smem = g_smem;"),
-]
 
 
 @pytest.fixture(scope="module")
@@ -91,18 +86,6 @@ def test_window_rows_decode_to_their_bytes():
                         (ring or tool.ring_bytes()) + 100, 3 * (ring or tool.ring_bytes()) + 7, 5]
 
 
-def test_instrument_knows_both_layouts():
-    src = (CSRC / "decode_blocks.cu").read_text()
-    assert tool.layout_of(src) == "window" and tool.instrument(src)[0] == "window"
-    assert tool.instrument(STAGED.read_text())[0] == "staged"
-    with pytest.raises(RuntimeError, match="does not hold"):
-        tool.instrument(src.replace("      const uint4 r = next_rec;\n", "      const uint4 r(next_rec);\n"))
-    with pytest.raises(RuntimeError, match="3 time"):
-        tool.instrument(src.replace("stage(ring, src, ", "stage(ring, src,", 1))
-    with pytest.raises(RuntimeError, match="does not hold"):
-        tool.instrument(STAGED.read_text().replace("      op += len;\n", "      op = op + len;\n"))
-
-
 def test_main_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the tool runs there")
@@ -129,21 +112,10 @@ def walk(body: bytes):
             ip += 1 + k
 
 
-def _staged_emulation_source(src: str) -> str:
-    src = src[: src.index('extern "C" {')]
-    for old, new in _STAGED_SUBSTITUTIONS:
-        assert src.count(old) == 1, f"staged source no longer holds {old!r}"
-        src = src.replace(old, new)
-    harness = HARNESS.replace("decode_blocks_kernel(", "decode_blocks_kernel<true>(")
-    return PRELUDE + "alignas(16) static uint8_t g_smem[1 << 20];\n" + src + harness
-
-
-@pytest.mark.parametrize("layout", ["window", "staged"])
+@pytest.mark.parametrize("layout", ["window"])
 def test_instrumented_copy_counts_the_tags(tmp_path, layout):
-    text = (CSRC / "decode_blocks.cu").read_text() if layout == "window" else STAGED.read_text()
-    got_layout, src = tool.instrument(text)
-    assert got_layout == layout
-    emu_src = emulation_source(src) if layout == "window" else _staged_emulation_source(src)
+    src = kernel_profile.instrument((CSRC / "decode_blocks.cu").read_text(), tool.probes())
+    emu_src = emulation_source(src)
     lib = build_emulation(tmp_path, emu_src.replace(PRELUDE, PRELUDE + _PROFILE_PRELUDE, 1) + _PROFILE_READ)
     lib.emu_prof.restype = ctypes.POINTER(ctypes.c_ulonglong)
     edge = tool.window_rows()
@@ -168,7 +140,6 @@ def test_instrumented_copy_counts_the_tags(tmp_path, layout):
         sum(kind == "copy" and v > near for kind, v in tags),
     ]
     assert c[first + 2] > 0 and c[first + 3] > 0
-    stagings = c[first + 4]
-    assert stagings > len(rows) if layout == "window" else stagings == len(rows)
+    assert c[first + 4] > len(rows)  # stagings
     assert c[tool.TOTAL] >= sum(c[: tool.TOTAL]) > 0
-    assert (c[4] > 0) == (layout == "window")  # flushes
+    assert c[4] > 0  # flushes

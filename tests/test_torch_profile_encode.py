@@ -1,6 +1,8 @@
 """``tools/profile_encode.py`` on the CPU: its batches and its measurement
 through the plain version at a small size, and its instrumented copy of the encoder
 source under the g++ emulation of ``tests/test_torch_encode_kernel_host.py``.
+Its anchors are checked with K1's and K3's in
+``tests/test_torch_kernel_profile.py``.
 
 The instrumented copy counts the takes its chase parses; here, with
 ``clock64()`` a per-thread counter, that count must equal the plain parse's
@@ -17,6 +19,7 @@ import torch
 from snappy_tpu_torch.ops import encode_torch, route
 from snappy_tpu_torch.ops.encode_torch import ENC_PAD
 from snappy_tpu_torch.ops.kernels import CSRC
+from snappy_tpu_torch.tools import kernel_profile
 from snappy_tpu_torch.tools import profile_encode as tool
 
 from conftest import read_testdata
@@ -90,13 +93,6 @@ def test_the_collision_block_routes_to_the_host_at_full_size():
     assert route.host_blocks(buf, np.array([len(row)], np.int32)).tolist() == [0]
 
 
-def test_instrument_refuses_a_source_without_its_phases():
-    src = (CSRC / "encode_blocks.cu").read_text()
-    assert tool.instrument(src)[0] == "chase"
-    with pytest.raises(RuntimeError, match="does not hold"):
-        tool.instrument(src.replace("  // 3. Candidates", "  // 3. The candidates"))
-
-
 def test_main_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the tool runs there")
@@ -106,8 +102,7 @@ def test_main_needs_a_card():
 
 @pytest.fixture(scope="module")
 def profiled(tmp_path_factory):
-    layout, src = tool.instrument((CSRC / "encode_blocks.cu").read_text())
-    assert layout == "chase"
+    src = kernel_profile.instrument((CSRC / "encode_blocks.cu").read_text(), tool.PROBES)
     emu_src = _emulation_source(src).replace(_PRELUDE, _PRELUDE + _PROFILE_PRELUDE, 1) + _PROFILE_READ
     run, lib = build_emulation(tmp_path_factory.mktemp("encode_profiled_host"), emu_src)
     lib.emu_prof.restype = ctypes.POINTER(ctypes.c_ulonglong)
