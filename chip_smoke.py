@@ -20,6 +20,9 @@ non-zero:
               output window and compressed ring (copies from around the
               window's reach across flushes, overlapping copies, literals
               around the ring's size, a 128 KiB segment, text across flushes)
+              and of chase_rows at the edges of the ring's step tables
+              (batch-ending literals at every tag, tags across the ring's
+              end, 32 and 33 tags to it, copies after full batches)
   4. slice    a 64 MiB corpus-mix frame (1024 blocks, crc on) through
               uncompress_framed(frame, device="cuda"): the main path; the
               kernel's launch counter is read just before and just after;
@@ -1276,7 +1279,7 @@ def main() -> int:
           and torch.equal(g_out[4], k_out[4]), "the kernel did not refuse lengths outside the batch")
     n_ok3 = int(k_ok.sum())
     # The rows at the edges of the kernel's window and ring, at 128 KiB.
-    wrows = profile_decode.window_rows()
+    wrows = {**profile_decode.window_rows(), **profile_decode.chase_rows()}
     w_bodies = [body for body, _ in wrows.values()]
     w_comp = pack_rows(np.frombuffer(b"".join(w_bodies), np.uint8),
                        np.cumsum([0] + [len(b) for b in w_bodies[:-1]]), np.array([len(b) for b in w_bodies]))
@@ -1293,7 +1296,8 @@ def main() -> int:
           f"+ trailing byte + cut copy + 128 damaged blocks): out, ok identical to the plain version, total identical "
           f"where ok; {n_ok3} rows ok; max |kernel - plain| = {err3}; 4 rows with lengths "
           f"outside the batch refused; {len(wrows)} rows at the edges of the {profile_decode.window_bytes()}-byte "
-          f"window and {profile_decode.ring_bytes()}-byte ring at 128 KiB ({', '.join(wrows)}): identical to the "
+          f"window, the {profile_decode.ring_bytes()}-byte ring and its step tables at 128 KiB ({', '.join(wrows)}): "
+          f"identical to the "
           f"plain version and to their bytes", flush=True)
 
     # 4. the slice at full size: a 64 MiB frame through the main path

@@ -29,9 +29,17 @@
 // memory, and many chains on an SM:
 // - the compressed row passes through a ring of kRing bytes, staged with
 //   16-byte loads whenever the next tag lies past it;
-// - a chase finds the positions of up to 32 tags that lie in the ring with
-//   their bytes (a shared load and a few integer ops a tag), lane k keeping
-//   the k-th; then every lane reads its own tag, a warp scan gives each its
+// - the first batch of a ring that can take a tag charts it, all lanes at
+//   once and from the walk's position on: a table of the step from every ring
+//   position to the next tag (a copy's tag bytes, a short literal's bytes
+//   too), and tables of the steps two and four tags on, built by doubling; a
+//   position at which the batch would end (a literal with a length trailer
+//   or past the ring, a tag whose 5 bytes are not all in the ring, the
+//   stream's last byte) stops them;
+// - the chase follows the four-tag table, one shared load a step, up to 32
+//   tags, the lanes fill in the tags between from the two- and one-tag
+//   tables, and single steps take the tags before a stop, lane k keeping the
+//   k-th; then every lane reads its own tag, a warp scan gives each its
 //   output position and a ballot the walk's checks, for all 32 at once;
 // - then the moves, in order, each split over the 32 lanes: a literal's
 //   bytes from the ring, a copy as out[op + j] = out[op - f + (j mod f)] (RLE
@@ -45,7 +53,10 @@
 // - shared memory a block does not depend on the row's width, so one kernel
 //   takes every row (64 KiB framed blocks, raw segments, a whole
 //   unsegmentable stream), and ten blocks share an SM: 1024 blocks run in one
-//   wave on 132 SMs.
+//   wave on 132 SMs. A block holds the window (16 KiB), the ring (1 KiB) and
+//   its three tables (1 KiB each), the step by tag byte (256 B) and a batch's
+//   records (512 B): 21,248 B. Ten blocks an SM, each with the 1 KiB the
+//   card reserves for a block, leave a block at most 22,323 B.
 // - a ragged row stages from the 16-byte chunk that holds its first byte, so
 //   its ring loads stay 16 bytes wide wherever the buffer is aligned; bytes
 //   the buffer does not hold past its end are staged as zeros, as a fixed
@@ -62,7 +73,7 @@
 #define SNAPPY_K1_WINDOW 16384
 #endif
 #ifndef SNAPPY_K1_RING
-#define SNAPPY_K1_RING 4096
+#define SNAPPY_K1_RING 1024
 #endif
 
 namespace {
@@ -80,6 +91,7 @@ constexpr uint32_t kRing = SNAPPY_K1_RING;
 constexpr uint32_t kNear = kWindow - 64;
 static_assert((kWindow & kWindowMask) == 0 && kHalf >= 128, "the window is a power of two, 256 bytes or more");
 static_assert(kRing % 16 == 0 && kRing >= 64, "the ring holds whole 16-byte chunks, 64 bytes or more");
+constexpr uint32_t kStop = 0xFF;  // a table entry no step crosses (a step is at most 4 x 61 bytes)
 
 // Tag-decode LUT entry of tag byte c, computed rather than loaded (all lanes
 // take the same branch): bits 0..7 length, 8..10 copy offset high bits
@@ -124,6 +136,92 @@ __device__ __forceinline__ void stage(uint8_t* ring, const uint8_t* __restrict__
   }
   for (; i < real - base; i += kWarp) ring[i] = src[base + i];
   for (; i < end - base; i += kWarp) ring[i] = 0;
+  __syncwarp();
+}
+
+// The step tables of the ring: one[i], the bytes from ring position i to
+// the next tag; two[i] and four[i], to the tag two and four on.
+struct Steps {
+  uint8_t one[kRing], two[kRing], four[kRing];
+};
+
+// Each lane takes kUnroll words of 4 positions at a time, so that their
+// loads overlap.
+constexpr uint32_t kUnroll = 2;
+
+// to[i] := from[i] + from[i + from[i]], or kStop, for i in the words of 4
+// positions from the one that holds lo to the one that holds len - 1.
+__device__ __forceinline__ void double_steps(const uint8_t* from, uint8_t* to, uint32_t lo, uint32_t len,
+                                             int lane) {
+  const uint32_t* f4 = reinterpret_cast<const uint32_t*>(from);
+  uint32_t* t4 = reinterpret_cast<uint32_t*>(to);
+  const uint32_t words = (len + 3) >> 2;
+  for (uint32_t w0 = (lo >> 2) + lane; w0 < words; w0 += kUnroll * kWarp) {
+    uint32_t a[kUnroll], b[kUnroll][4];
+#pragma unroll
+    for (uint32_t u = 0; u < kUnroll; ++u) {
+      const uint32_t w = w0 + u * kWarp;
+      a[u] = w < words ? f4[w] : ~0u;
+    }
+#pragma unroll
+    for (uint32_t u = 0; u < kUnroll; ++u) {
+#pragma unroll
+      for (uint32_t v = 0; v < 4; ++v) {
+        const uint32_t s = (a[u] >> (8 * v)) & 0xFF, j = 4 * (w0 + u * kWarp) + v + s;
+        b[u][v] = s != kStop && j < len ? from[j] : kStop;
+      }
+    }
+#pragma unroll
+    for (uint32_t u = 0; u < kUnroll; ++u) {
+      const uint32_t w = w0 + u * kWarp;
+      uint32_t packed = 0;
+#pragma unroll
+      for (uint32_t v = 0; v < 4; ++v) {
+        const uint32_t s = (a[u] >> (8 * v)) & 0xFF;
+        packed |= (b[u][v] == kStop ? kStop : s + b[u][v]) << (8 * v);
+      }
+      if (w < words) t4[w] = packed;
+    }
+  }
+}
+
+// The tables of the ring [rbase, rend) from ring position lo on. kStop
+// where the chase ends its batch at the tag: a literal with a length trailer
+// or whose bytes run past the ring, a tag whose 5 bytes are not all in the
+// ring, one at or past the stream's last byte; and (two, four) where a tag
+// the step crosses is so. `advance` is one[] by tag byte alone. All lanes
+// call it, with a tag at rbase + lo that the chase can take.
+__device__ __forceinline__ void chart(Steps& st, const uint8_t* ring, const uint8_t* advance, uint32_t lo,
+                                      uint32_t rbase, uint32_t rend, uint32_t clen, int lane) {
+  const uint32_t len = rend - rbase, words = (len + 3) >> 2;
+  // A tag at or past this ring position has fewer than 5 bytes in the ring
+  // or is at or past the stream's last byte.
+  const uint32_t last = lesser(clen - 1, rend - 4) - rbase;
+  const uint32_t* r4 = reinterpret_cast<const uint32_t*>(ring);
+  uint32_t* o4 = reinterpret_cast<uint32_t*>(st.one);
+  for (uint32_t w0 = (lo >> 2) + lane; w0 < words; w0 += kUnroll * kWarp) {
+    uint32_t r[kUnroll];
+#pragma unroll
+    for (uint32_t u = 0; u < kUnroll; ++u) {
+      const uint32_t w = w0 + u * kWarp;
+      r[u] = w < words ? r4[w] : 0u;
+    }
+#pragma unroll
+    for (uint32_t u = 0; u < kUnroll; ++u) {
+      const uint32_t w = w0 + u * kWarp;
+      uint32_t packed = 0;
+#pragma unroll
+      for (uint32_t v = 0; v < 4; ++v) {
+        const uint32_t i = 4 * w + v, d = advance[(r[u] >> (8 * v)) & 0xFF];
+        packed |= (i < last && i + d <= len ? d : kStop) << (8 * v);
+      }
+      if (w < words) o4[w] = packed;
+    }
+  }
+  __syncwarp();
+  double_steps(st.one, st.two, lo, len, lane);
+  __syncwarp();
+  double_steps(st.two, st.four, lo, len, lane);
   __syncwarp();
 }
 
@@ -207,11 +305,18 @@ __device__ __forceinline__ void decode_row(const uint8_t* __restrict__ comp, con
   // The window, then the ring, in one array: a move reads either by index.
   __shared__ __align__(16) uint8_t smem[kWindow + kRing];
   __shared__ uint4 recs[kWarp];  // a batch's tags: output position, length | literal flag, source
+  __shared__ __align__(16) Steps st;
+  __shared__ uint8_t advance[256];  // the step past a tag, by its byte; kStop for a literal with a trailer
   uint8_t* const win = smem;
   uint8_t* const ring = smem + kWindow;
   const int64_t row = blockIdx.x;
   const int lane = threadIdx.x;
   if (kRagged && row >= rag.rows[0]) return;
+  for (uint32_t c = lane; c < 256; c += kWarp) {
+    const uint32_t entry = tag_entry(c);
+    advance[c] = uint8_t(c & 3u ? 1 + (entry >> 11) : (entry >> 11) == 0 ? 1 + (entry & 0xFF) : kStop);
+  }
+  __syncwarp();
   const uint8_t* src = comp + row * row_c;
   uint8_t* dst = out + row * out_size;
 
@@ -247,25 +352,44 @@ __device__ __forceinline__ void decode_row(const uint8_t* __restrict__ comp, con
 
   uint32_t ip = shift, op = 0, flushed = 0;  // the row holds output [0, flushed)
   uint32_t rbase = 0, rend = 0;          // the ring holds comp [rbase, rend)
+  uint32_t charted = ~0u;                // the ring base the step tables hold, from ip on
   // Every lane walks the same tags, so all control flow is warp-uniform.
   while (ok && ip + 1 < clen) {
     // The tag lies past the ring: stage from it.
     if (ip + 5 > rend) stage(ring, src, ip, in_end, wide_in, lane, rbase, rend, in_have);
-    // The chase: the positions of up to 32 tags that lie in the ring with
-    // their bytes, the k-th kept by lane k; from each tag byte only its
-    // length. A literal with a length trailer, or whose bytes run past the
-    // ring, ends the batch.
-    uint32_t at = 0, nb = 0;
-    for (; nb < kWarp && ip + 1 < clen && ip + 5 <= rend; ++nb) {
-      const uint32_t tc = ring[ip - rbase];
-      const uint32_t entry = tag_entry(tc);
-      uint32_t next = ip + 1 + (entry >> 11);
-      if ((tc & 3u) == 0) {
-        next += entry & 0xFF;
-        if ((entry >> 11) || next > rend) break;
+    // The ring's tables, built at its first batch whose first tag the chase
+    // can take (a ring of long literals may have none).
+    if (charted != rbase) {
+      const uint32_t d = advance[ring[ip - rbase]];
+      if (d != kStop && ip + d <= rend) {
+        chart(st, ring, advance, ip - rbase, rbase, rend, clen, lane);
+        charted = rbase;
       }
-      if (lane == nb) at = ip;
-      ip = next;
+    }
+    // The chase: the positions of up to 32 tags that lie in the ring with
+    // their bytes, the k-th kept by lane k; four at a time while the tables
+    // allow, then one at a time. A literal with a length trailer, or whose
+    // bytes run past the ring, ends the batch.
+    uint32_t at = 0, nb = 0;
+    if (charted == rbase) {
+      uint32_t at4 = 0;
+      for (; nb + 4 <= kWarp && ip < rend; nb += 4) {
+        const uint32_t d = st.four[ip - rbase];
+        if (d == kStop) break;
+        if (lane == int(nb >> 2)) at4 = ip;
+        ip += d;
+      }
+      at = __shfl_sync(0xFFFFFFFFu, at4, lane >> 2);
+      if (uint32_t(lane) < nb) {
+        if (lane & 2) at += st.two[at - rbase];
+        if (lane & 1) at += st.one[at - rbase];
+      }
+      for (; nb < kWarp && ip < rend; ++nb) {
+        const uint32_t d = st.one[ip - rbase];
+        if (d == kStop) break;
+        if (lane == int(nb)) at = ip;
+        ip += d;
+      }
     }
     uint32_t c = 0, word = 0;  // a tag byte and the 4 bytes after it
     if (nb == 0) {
@@ -429,7 +553,7 @@ using RaggedKernel = void (*)(const uint8_t*, const int32_t*, const int32_t*, ui
 
 extern "C" {
 
-// Ten blocks of ~20 KiB an SM need the largest shared-memory carveout. The
+// Ten blocks of ~21 KiB an SM need the largest shared-memory carveout. The
 // preference belongs to the current device; it is set once on each (on
 // devices past the 64th, at every call).
 static cudaError_t prefer_shared() {

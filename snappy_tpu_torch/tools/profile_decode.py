@@ -6,20 +6,26 @@ Builds an instrumented copy of ``csrc/decode_blocks.cu`` (or of another
 copy of the windowed decoder at PATH, such as a parent commit's) into the
 build directory (``kernel_profile``). Each thread of a block reads
 ``clock64()`` around each phase: staging compressed bytes in shared memory,
-literal moves, near and far copy moves, window flushes, and the tail (the
-last flush and the zeros past the output); the walk (parsing the tags and their checks) is the rest of the
-block's cycles. Thread 0 counts tags, literals, near and far copies and
-stagings, and adds its totals to device counters. A copy is near when its
-offset is at most the window's reach (window less 64 bytes).
+literal moves, near and far copy moves, window flushes, the tail (the last
+flush and the zeros past the output), building the ring's step tables, and
+the chase (the positions of a batch's tags from the tables); the walk (the
+lanes' reads of their tags, the scan and the checks) is the rest of the
+block's cycles. Thread 0 counts tags, literals, near and far copies,
+stagings, the tables' builds, the chase's batches and the tags it placed
+from the four-tag table and one at a time, and adds its totals to device
+counters. A copy is near when its offset is at most the window's reach
+(window less 64 bytes).
 
-Then, on batches of 64 KiB blocks encoded by the native encoder (the corpus
-mix that ``chip_smoke.py`` decodes, and 256 blocks each of alice29.txt,
-html, kppkn.gtb and fireworks.jpeg), it prints the kernel's time (CUDA
+Then, on batches of blocks encoded by the native encoder (the corpus mix
+that ``chip_smoke.py`` decodes in 64 KiB blocks, 2,048 blocks of 32 KiB of
+the benchmark's shuffle rows, and 256 blocks each of alice29.txt, html,
+kppkn.gtb and fireworks.jpeg), it prints the kernel's time (CUDA
 events, median of 5 after a warm-up: this package's kernel, the source's
 own uninstrumented build and the instrumented one) and, from the
 instrumented copy, whose output must equal the uninstrumented build's on
 all rows and the plain version's on sampled rows: cycles a block by phase,
-tags, literals and near and far copies a block, cycles a tag, and the
+its counts a block, cycles a tag, the share of tags the tables placed, tags
+a batch, the chase's cycles a tag it placed, and the
 shared memory a block and blocks resident per SM at the launch's size
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). ``--window`` and
 ``--ring`` build the source with another window or ring (bytes).
@@ -47,15 +53,16 @@ from ..core import varint
 from ..native import runtime as nat
 from ..ops import cuda_decode, decode_torch, kernels
 from ..utils.metrics import time_device_fn
-from . import kernel_profile
+from . import kernel_profile, profile_encode
 from .corpus import BLOCK, FILES, MIX, REPO, block_batch, read, repeat_to
 
 # Counter slots: the timed phases, the block's total, then the counts. The
 # walk is the total less the timed phases.
-PHASES = ["stage", "literals", "near copies", "far copies", "flushes", "tail"]
-TOTAL = 6
-COUNTS = ["tags", "literals", "near copies", "far copies", "stagings"]
-SLOTS = 16
+PHASES = ["stage", "literals", "near copies", "far copies", "flushes", "tail", "tables", "chase"]
+TOTAL = len(PHASES)
+COUNTS = ["tags", "literals", "near copies", "far copies", "stagings", "table tags", "single tags", "batches",
+          "table builds"]
+SLOTS = TOTAL + 1 + len(COUNTS)
 NEAR_MARGIN = 64  # a near copy's offset is at most the window less this
 
 _COUNTERS = f"__device__ unsigned long long g_prof[{SLOTS}];\n"
@@ -79,14 +86,16 @@ _READ = (
     f"int prof_reset() {{ unsigned long long z[{SLOTS}] = {{0}}; return cudaMemcpyToSymbol(g_prof, z, sizeof(z)); }}\n"
 )
 _EXTERN_END = '}  // extern "C"\n'
-_TAG, _LIT, _NEAR, _FAR, _STAGE = (TOTAL + 1 + i for i in range(len(COUNTS)))
+_TAG, _LIT, _NEAR, _FAR, _STAGE, _TABLE, _SINGLE, _BATCH, _BUILD = (TOTAL + 1 + i for i in range(len(COUNTS)))
 
 
 def probes(window: int | None = None) -> list[tuple]:
     """K1's probes (``kernel_profile``): its ring stagings (three call
     sites), the moves (each ends at the warp sync after it; a literal moved
     alone spans its pieces, the flushes between them included), the flushes
-    of full halves and the tail. The walk is the rest: the chase, the lanes'
+    of full halves, the tail, the tables' builds and the chase, with the
+    chase's batches and the tags it placed by the four-tag table (the tags
+    between filled in) and one at a time. The walk is the rest: the lanes'
     reads of their tags, the scan and the checks. A copy is near when its
     offset is at most ``window`` (default: this package's) less 64 bytes."""
     near = (window or window_bytes()) - NEAR_MARGIN
@@ -105,12 +114,22 @@ def probes(window: int | None = None) -> list[tuple]:
     move_end = "      // Lanes read bytes other lanes wrote for earlier tags.\n"
     flush_end = "        flushed += kHalf;\n        __syncwarp();\n      }\n    }\n  }\n"
     begin_after = "  uint8_t* dst = out + row * out_size;\n"
+    build = "        chart(st, ring, advance, ip - rbase, rbase, rend, clen, lane);\n"
+    chase_end = "      }\n    }\n    uint32_t c = 0, word = 0;  // a tag byte and the 4 bytes after it\n"
     return [
         ("namespace {\n", _COUNTERS + _MACROS + "namespace {\n"),
-        (begin_after, begin_after + _BEGIN + "  int prof_k = 0;\n"),
+        (begin_after, begin_after + _BEGIN + "  int prof_k = 0;\n  uint32_t prof_n4 = 0;\n"),
         ('extern "C" {\n', _READ),
         ("namespace {\n", stage + "namespace {\n"),
         ("stage(ring, src, ", "PROF_STAGE(ring, src, ", 3),
+        (build, f"        PROF_T0;\n{build}        PROF_ADD(6);\n        ++prof_c[{_BUILD}];\n"),
+        ("    uint32_t at = 0, nb = 0;\n", "    PROF_T0;\n    uint32_t at = 0, nb = 0;\n"),
+        ("      at = __shfl_sync(0xFFFFFFFFu, at4, lane >> 2);\n",
+         "      prof_n4 = nb;\n      at = __shfl_sync(0xFFFFFFFFu, at4, lane >> 2);\n"),
+        (chase_end,
+         f"      }}\n      prof_c[{_TABLE}] += prof_n4;\n      prof_c[{_SINGLE}] += nb - prof_n4;\n"
+         f"      prof_c[{_BATCH}] += nb > 0;\n    }}\n    PROF_ADD(7);\n"
+         "    uint32_t c = 0, word = 0;  // a tag byte and the 4 bytes after it\n"),
         ("      // A literal with a length trailer or past the ring, alone.\n",
          f"      ++prof_c[{_TAG}];\n      ++prof_c[{_LIT}];\n      // A literal with a length trailer or past the ring, alone.\n"),
         ("      for (;;) {\n", "      PROF_T0;\n      for (;;) {\n"),
@@ -161,9 +180,12 @@ class _Stream:
             self.body += bytes([(59 + k) << 2]) + n.to_bytes(k, "little") + data
         self.out += data
 
-    def copy(self, length: int, offset: int, four: bool = False) -> None:
-        """A COPY_2, or a COPY_4 where ``four`` or the offset needs it."""
-        if offset < 1 << 16 and not four:
+    def copy(self, length: int, offset: int, four: bool = False, one: bool = False) -> None:
+        """A COPY_2, a COPY_1 where ``one`` (length 4-11, offset under
+        2048), or a COPY_4 where ``four`` or the offset needs it."""
+        if one:
+            self.body += bytes([0x01 | (length - 4) << 2 | (offset >> 8) << 5, offset & 0xFF])
+        elif offset < 1 << 16 and not four:
             self.body += bytes([0x02 | (length - 1) << 2]) + offset.to_bytes(2, "little")
         else:
             self.body += bytes([0x03 | (length - 1) << 2]) + offset.to_bytes(4, "little")
@@ -181,6 +203,14 @@ class _Stream:
             self.copy(n, offset)
         elif n:
             self.literal(rng.integers(0, 256, n, dtype=np.uint8).tobytes())
+
+    def fill_to(self, at: int, rng) -> None:
+        """Short literals (60 bytes or fewer, none of one byte) until the
+        stream is ``at`` bytes long; ``at`` is 0 or 2 or more bytes on."""
+        while len(self.body) < at:
+            left = at - len(self.body)
+            take = left if left <= 61 else 60 if left == 62 else 61
+            self.literal(rng.integers(0, 256, take - 1, dtype=np.uint8).tobytes())
 
     def row(self) -> tuple[bytes, bytes]:
         return bytes(self.body), bytes(self.out)
@@ -235,11 +265,108 @@ def window_rows(window: int | None = None, ring: int | None = None) -> dict[str,
     return rows
 
 
-def batches(mix_blocks: int = 1024, file_blocks: int = 256, n: int = BLOCK) -> dict:
-    """{label: (comp, clens, ulens, out_size)}: the corpus mix and
-    ``file_blocks`` blocks of each of FILES."""
+def chase_rows(ring: int | None = None) -> dict[str, tuple[bytes, bytes]]:
+    """{name: (tag stream, the bytes it decodes to)}: rows at the edges of
+    the chase's step tables over the decoder's ring (default: this
+    package's), which end a batch where a tag is a literal with a length
+    trailer or past the ring, has fewer than 5 bytes of the ring, or is the
+    stream's last. A literal with a trailer as the 1st to 34th tag after
+    one, so that it cuts four-tag steps at every point and falls 1st, 5th and
+    32nd in a batch; the first ring's end at offsets -5 to 0 from the 5 bytes
+    after a COPY_1, a COPY_2, a COPY_4 and a literal; short literals that
+    end at the first ring's end or a byte past it; 32 and 33 tags that end
+    there (where the ring holds them); overlapping copies of offset 1-4 as
+    the first tags of batches after full ones; and streams whose last tag is
+    two bytes, a COPY_1 or a literal, from the stream's last byte but one."""
+    ring = ring or ring_bytes()
+    rng = np.random.default_rng(25)
+
+    def noise(n):
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    def finish(st):
+        # More tags past the first ring's end, so that the walk goes on.
+        for k in range(40):
+            st.copy(4 + k % 8, 1 + k % 16, one=k % 3 == 0)
+            if k % 5 == 0:
+                st.literal(noise(1 + k % 9))
+        return st.row()
+
+    rows = {}
+    cut = _Stream()
+    cut.literal(noise(16))
+    for k in range(34):
+        for j in range(k):
+            cut.copy(4 + j % 8, 1 + j % 16, one=j % 2 == 0)
+        cut.literal(noise(61 + k))
+    rows["trailer-literal-at-every-tag"] = cut.row()
+    kinds = {
+        "copy1": lambda st: st.copy(4, 3, one=True),
+        "copy2": lambda st: st.copy(9, 7),
+        "copy4": lambda st: st.copy(5, 2, four=True),
+        "literal": lambda st: st.literal(noise(3)),
+    }
+    for name, emit in kinds.items():
+        for off in range(6):
+            st = _Stream()
+            st.literal(noise(16))
+            st.fill_to(ring - 5 + off - 3 * 7, rng)
+            for _ in range(7):
+                st.copy(5, 16)
+            emit(st)
+            rows[f"{name}-at-ring-end-less-{5 - off}"] = finish(st)
+    for n in (4, 33, 60):
+        for past in (0, 1):
+            st = _Stream()
+            st.literal(noise(16))
+            st.fill_to(ring + past - 1 - n, rng)
+            st.literal(noise(n))
+            rows[f"literal-of-{n}-to-ring-end-plus-{past}"] = finish(st)
+    for m in (32, 33):
+        st = _Stream()
+        size = min(max(ring // m, 5), 61)
+        sizes, rest = [size] * m, ring - size * m
+        if size < 61 and 0 < rest < m:
+            sizes[:rest] = [size + 1] * rest
+        elif rest >= 2:
+            st.fill_to(rest, rng)
+        for n in sizes:
+            st.literal(noise(n - 1))
+        rows[f"{m}-tags-to-ring-end"] = finish(st)
+    rle = _Stream()
+    rle.literal(noise(8))
+    for _ in range(31):
+        rle.copy(8, 8)
+    for rep in range(6):
+        for f in range(1, 5):
+            for length in (4, 9, 64):
+                rle.copy(length, f, one=length < 12 and rep % 2 == 0)
+        for _ in range(20):
+            rle.copy(6, 5 + rep)
+    rows["overlapping-copies-after-full-batches"] = rle.row()
+    for name, last in (("copy1", lambda st: st.copy(7, 5, one=True)), ("literal", lambda st: st.literal(noise(1)))):
+        st = _Stream()
+        st.literal(noise(20))
+        for k in range(45):
+            st.copy(4 + k % 8, 1 + k % 16)
+        last(st)
+        rows[f"last-tag-{name}-ends-the-stream"] = st.row()
+    return rows
+
+
+def batches(mix_blocks: int = 1024, file_blocks: int = 256, lineitem_blocks: int = 2048, n: int = BLOCK,
+            lineitem_n: int = 1 << 15, device=None) -> dict:
+    """{label: (comp, clens, ulens, out_size)}: the corpus mix,
+    ``lineitem_blocks`` blocks of ``lineitem_n`` bytes of the benchmark's
+    shuffle rows (``profile_encode.lineitem_rows``, drawn on ``device``;
+    where the checkout has them) and ``file_blocks`` blocks of each of
+    FILES."""
     files = {name: read(name) for name in MIX}
     out = {f"corpus mix, {mix_blocks} blocks": block_batch(repeat_to([files[m] for m in MIX], mix_blocks * n), n)}
+    rows = profile_encode.lineitem_rows(lineitem_blocks, lineitem_n, device)
+    if rows is not None:
+        label = f"lineitem, {lineitem_blocks} blocks of {lineitem_n // 1024} KiB"
+        out[label] = block_batch(rows.tobytes(), lineitem_n)
     for name in FILES:
         out[f"{name}, {file_blocks} blocks"] = block_batch(repeat_to([files[name]], file_blocks * n), n)
     return out
@@ -289,6 +416,10 @@ def measure(label: str, comp, clens, ulens, out_size: int, dev, libs=None, check
     tags = rec["tags_per_block"]
     rec["cycles_per_tag"] = total / tags if tags else None
     rec["walk_cycles_per_tag"] = rec["phases"]["walk"] / tags if tags else None
+    chased = rec["table_tags_per_block"] + rec["single_tags_per_block"]
+    rec["chase_cycles_per_tag"] = rec["phases"]["chase"] / chased if chased else None
+    rec["table_share"] = rec["table_tags_per_block"] / tags if tags else None
+    rec["tags_per_batch"] = chased / rec["batches_per_block"] if rec["batches_per_block"] else None
     rec["smem_per_block"] = smem.value
     rec["blocks_per_sm"] = blocks.value
     return rec
@@ -301,7 +432,13 @@ def line(r: dict) -> str:
     total = r["cycles_per_block"]
     shares = ", ".join(f"{k} {v:.0f} ({v / total:.1%})" for k, v in r["phases"].items())
     counts = ", ".join(f"{r[k.replace(' ', '_') + '_per_block']:.1f} {k}" for k in COUNTS)
-    per_tag = f"{r['cycles_per_tag']:.1f} cycles a tag (walk {r['walk_cycles_per_tag']:.1f})" if r["tags_per_block"] else "no tags"
+    per_tag = "no tags"
+    if r["tags_per_block"]:
+        per_tag = (f"{r['cycles_per_tag']:.1f} cycles a tag (walk {r['walk_cycles_per_tag']:.1f}); "
+                   f"the tables placed {r['table_share']:.1%} of the tags")
+    if r["batches_per_block"]:
+        per_tag += (f"; {r['tags_per_batch']:.2f} tags a batch, chase {r['chase_cycles_per_tag']:.1f} cycles "
+                    "a chased tag")
     return (f"{s}; source {r['source_ms']:.4f} ms, instrumented {r['profiled_ms']:.4f} ms; "
             f"{r['smem_per_block']} bytes of shared memory a block, {r['blocks_per_sm']} blocks an SM; "
             f"cycles a block {total:.0f}: {shares}; a block: {counts}; {per_tag}")
@@ -337,7 +474,7 @@ def main(argv: list[str]) -> int:
     print(f"source {os.path.relpath(opts.source, REPO)}"
           f"{f', window {opts.window}' if opts.window else ''}{f', ring {opts.ring}' if opts.ring else ''}", flush=True)
     records = []
-    for label, (comp, clens, ulens, out_size) in batches().items():
+    for label, (comp, clens, ulens, out_size) in batches(device=dev).items():
         records.append(measure(label, comp, clens, ulens, out_size, dev, libs))
         print(line(records[-1]), flush=True)
     print(json.dumps({"profile_decode": records}), flush=True)

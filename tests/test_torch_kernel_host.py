@@ -240,6 +240,27 @@ def test_kernel_matches_plain_version_at_the_window_edges(emu, shape):
     _assert_same(emu(comp, clens, ulens, WIDE, shape), want)
 
 
+@pytest.mark.parametrize("shape", list(SHAPE_BUILDS))
+@pytest.mark.parametrize("width", ["aligned", "odd"])
+def test_kernel_matches_plain_version_at_the_chase_edges(emu, shape, width):
+    """Rows at the edges of the chase's step tables over the build's ring
+    (``tools/profile_decode.chase_rows``): a literal with a length trailer
+    as every tag of a batch, tags across the ring's end at every offset of
+    their 5 bytes, short literals to the ring's end and a byte past it, 32
+    and 33 tags to the ring's end, overlapping copies after full batches,
+    and a last tag of two bytes; in rows staged with 16-byte loads and rows
+    of an odd width. The plain version's bytes, which are the rows' own."""
+    _, ring = SHAPE_BUILDS[shape]
+    rows = profile_decode.chase_rows(ring)
+    batch = aligned_batch if width == "aligned" else odd_width_batch
+    comp, clens, ulens = batch([(body, len(raw)) for body, raw in rows.values()])
+    want = _plain(comp, clens, ulens, WIDE)
+    assert want[1].all()
+    for i, (_, raw) in enumerate(rows.values()):
+        assert want[0][i, : len(raw)].tobytes() == raw
+    _assert_same(emu(comp, clens, ulens, WIDE, shape), want)
+
+
 @ROW_SHAPES
 def test_kernel_refuses_lengths_outside_the_batch(emu, shape):
     """Lengths the CUDA wrapper does not read on the host: the kernel's own

@@ -6,8 +6,10 @@ and K3's in ``tests/test_torch_kernel_profile.py``.
 
 With ``clock64()`` a per-thread counter, the instrumented copy's tags,
 literals and near and far copies must equal a walk of the same streams in
-Python, its output the plain version's, and its timed phases must add up to
-no more than the block's total. Tolerance: exact.
+Python, its batches, table builds and the tags its chase placed from the
+four-tag table and one at a time a model of the kernel's walk in Python
+(``k1_batches``), its output the plain version's, and its timed phases must
+add up to no more than the block's total. Tolerance: exact.
 """
 
 import ctypes
@@ -20,7 +22,7 @@ from snappy_tpu_torch.core import varint
 from snappy_tpu_torch.native import runtime as nat
 from snappy_tpu_torch.ops import decode_torch
 from snappy_tpu_torch.ops.kernels import CSRC
-from snappy_tpu_torch.tools import kernel_profile
+from snappy_tpu_torch.tools import kernel_profile, profile_encode
 from snappy_tpu_torch.tools import profile_decode as tool
 
 from conftest import read_testdata
@@ -43,11 +45,12 @@ extern "C" unsigned long long* emu_prof() { return g_prof; }
 
 @pytest.fixture(scope="module")
 def small_batches():
-    return tool.batches(mix_blocks=2, file_blocks=1, n=SMALL)
+    return tool.batches(mix_blocks=2, file_blocks=1, lineitem_blocks=3, n=SMALL, lineitem_n=SMALL)
 
 
 def test_batches(small_batches):
-    assert list(small_batches) == ["corpus mix, 2 blocks"] + [f"{n}, 1 blocks" for n in tool.FILES]
+    assert list(small_batches) == (["corpus mix, 2 blocks", "lineitem, 3 blocks of 4 KiB"]
+                                   + [f"{n}, 1 blocks" for n in tool.FILES])
     for comp, clens, ulens, out_size in small_batches.values():
         assert out_size == SMALL and comp.dtype == np.uint8 and comp.shape[1] % 16 == 0
         assert clens.dtype == ulens.dtype == np.int32 and (ulens == SMALL).all()
@@ -55,6 +58,11 @@ def test_batches(small_batches):
     comp, clens, _, _ = small_batches["alice29.txt, 1 blocks"]
     raw = read_testdata("alice29.txt")[:SMALL]
     assert nat.uncompress(bytes(varint.encode32(SMALL)) + comp[0, : clens[0]].tobytes()) == raw
+    comp, clens, _, _ = small_batches["lineitem, 3 blocks of 4 KiB"]
+    rows = profile_encode.lineitem_rows(3, SMALL)
+    for r in range(3):
+        raw = rows[r * SMALL : (r + 1) * SMALL].tobytes()
+        assert nat.uncompress(bytes(varint.encode32(SMALL)) + comp[r, : clens[r]].tobytes()) == raw
 
 
 def test_measure_runs_the_plain_version(small_batches):
@@ -112,6 +120,95 @@ def walk(body: bytes):
             ip += 1 + k
 
 
+STOP = 0xFF
+
+
+def _advance(c: int) -> int:
+    """The step past a tag of byte c: its tag bytes, and a short literal's
+    bytes; STOP for a literal with a length trailer."""
+    if c & 3:
+        return 1 + {1: 1, 2: 2, 3: 4}[c & 3]
+    return (c >> 2) + 2 if c >> 2 < 60 else STOP
+
+
+def k1_batches(body: bytes, ring: int, window: int, wide: bool) -> dict:
+    """{count: n} of the windowed decoder's walk of one valid row, as its
+    source walks it: the ring staged from the 16-byte chunk of the tag past
+    it; the ring's step tables built from the walk's position at the first
+    batch whose first tag the chase can take; a batch of up to 32 tags,
+    four at a time by the four-tag table, then one at a time; a literal that
+    ends a batch first moved alone, in pieces of at most the ring's rest and
+    half a window. ``wide``: the row is read with 16-byte loads (its ring
+    reaches the 16-byte chunk past the stream and its 4 bytes of padding)."""
+    clen = len(body)
+    in_end = (clen + 4 + 15) & ~15 if wide else clen + 4
+    half = window // 2
+    counts = {"table tags": 0, "single tags": 0, "batches": 0, "table builds": 0, "alone": 0}
+    ip = rbase = rend = 0
+    charted = None
+    one = two = four = None
+
+    def stage(at):
+        base = at & ~15
+        return base, min(base + ring, in_end)
+
+    def doubled(table, lo, n):
+        out = [STOP] * n
+        for i in range(lo, n):
+            a = table[i]
+            b = table[i + a] if a != STOP and i + a < n else STOP
+            out[i] = STOP if b == STOP else a + b
+        return out
+
+    while ip + 1 < clen:
+        if ip + 5 > rend:
+            rbase, rend = stage(ip)
+        n = rend - rbase
+        if charted != rbase:
+            d = _advance(body[ip])
+            if d != STOP and ip + d <= rend:
+                one = [STOP] * n
+                for i in range(ip - rbase, n):
+                    q = rbase + i
+                    d = _advance(body[q] if q < clen else 0)
+                    one[i] = d if q + 1 < clen and q + 5 <= rend and d != STOP and q + d <= rend else STOP
+                two = doubled(one, ip - rbase, n)
+                four = doubled(two, ip - rbase, n)
+                charted = rbase
+                counts["table builds"] += 1
+        nb = 0
+        if charted == rbase:
+            while nb + 4 <= 32 and ip < rend and four[ip - rbase] != STOP:
+                ip += four[ip - rbase]
+                nb += 4
+            counts["table tags"] += nb
+            while nb < 32 and ip < rend and one[ip - rbase] != STOP:
+                ip += one[ip - rbase]
+                nb += 1
+                counts["single tags"] += 1
+        if nb:
+            counts["batches"] += 1
+            continue
+        # A literal alone.
+        counts["alone"] += 1
+        c = body[ip]
+        k = (c >> 2) - 59 if c >> 2 >= 60 else 0
+        m = int.from_bytes(body[ip + 1 : ip + 1 + k], "little") + 1 if k else (c >> 2) + 1
+        s = ip + 1 + k
+        ip = s + m
+        if ip > rend:
+            rbase, rend = stage(s)
+        while True:
+            piece = min(m, rend - s, half)
+            s += piece
+            m -= piece
+            if m == 0:
+                break
+            if s == rend:
+                rbase, rend = stage(s)
+    return counts
+
+
 @pytest.mark.parametrize("layout", ["window"])
 def test_instrumented_copy_counts_the_tags(tmp_path, layout):
     src = kernel_profile.instrument((CSRC / "decode_blocks.cu").read_text(), tool.probes())
@@ -119,8 +216,10 @@ def test_instrumented_copy_counts_the_tags(tmp_path, layout):
     lib = build_emulation(tmp_path, emu_src.replace(PRELUDE, PRELUDE + _PROFILE_PRELUDE, 1) + _PROFILE_READ)
     lib.emu_prof.restype = ctypes.POINTER(ctypes.c_ulonglong)
     edge = tool.window_rows()
+    lineitem = profile_encode.lineitem_rows(1, 1 << 15).tobytes()
     rows = [(native_body(read_testdata("alice29.txt")[:65536]), 65536), (native_body(b"q" * 5000), 5000)]
     rows += [(body, len(raw)) for body, raw in (edge["copies-at-the-window-edge"], edge["literals-around-the-ring"])]
+    rows += [(native_body(lineitem), len(lineitem)), (native_body(read_testdata("fireworks.jpeg")[:65536]), 65536)]
     comp, clens, ulens = aligned_batch(rows)
     counts = lib.emu_prof()
     for i in range(tool.SLOTS):
@@ -141,5 +240,13 @@ def test_instrumented_copy_counts_the_tags(tmp_path, layout):
     ]
     assert c[first + 2] > 0 and c[first + 3] > 0
     assert c[first + 4] > len(rows)  # stagings
+    wide = comp.ctypes.data % 16 == 0
+    want = [k1_batches(body, tool.ring_bytes(), tool.window_bytes(), wide) for body, _ in rows]
+    names = ["table tags", "single tags", "batches", "table builds"]
+    assert c[first + 5 : first + 9] == [sum(w[k] for w in want) for k in names]
+    # Every tag is placed by the chase or moved alone.
+    assert c[first + 5] + c[first + 6] + sum(w["alone"] for w in want) == len(tags)
+    assert min(c[first + 5 : first + 9]) > 0
     assert c[tool.TOTAL] >= sum(c[: tool.TOTAL]) > 0
-    assert c[4] > 0  # flushes
+    phase = dict(zip(tool.PHASES, c))
+    assert phase["flushes"] > 0 and phase["tables"] > 0 and phase["chase"] > 0
