@@ -186,6 +186,19 @@ non-zero:
               slices of long streams on it (charted, and the shares the join
               met on their charts and walked tag by tag), and K4's beside
               its plain version's on 64 streams
+ 18. write    the batched raw-stream encoder (distributed.compress_streams)
+              on the pages of one row group of the benchmark's
+              parquet_lineitem_write as they lie end to end in one buffer:
+              one launch of each of K2's variants on the pages' fragments
+              (csrc/encode_blocks.cu's ragged entry, read in place) and one
+              of K5 (csrc/join_streams.cu); every page's stream equal to
+              ops/host.py::compress of the page with no block routed, and
+              64 drawn pages, every column among them, equal to the plain
+              reference (cpu/streams_encode_reference.py); every stream
+              decoded through decompress_streams, and under libsnappy where
+              it is installed (the phase says where it is not); the
+              fragments by variant, and the two K2 launches', K5's and the
+              whole call's device times, K5's beside its bound
 
 Before the last line it prints the card's `nvidia-smi` name and power limit
 and one JSON line {"kernels": [...]} with each kernel's launches on its main
@@ -194,7 +207,9 @@ on phase 14's 4-shard mesh and two ranks ("mesh_launches",
 "multihost_launches", the ranks' sum) and over phase 16 (K1, K2 and K3:
 "bench_launches", the bench's own count and run_corpus's and the
 profiled call's), K4's ("segment_streams": phase 17's decompress_streams
-call, with the ragged K1's as "ragged_k1_launches"),
+call, with the ragged K1's as "ragged_k1_launches"), K5's ("join_streams":
+phase 18's compress_streams call, with the ragged K2's as
+"ragged_k2_launches"),
 its largest difference from the plain version, its time beside the
 plain version's at the main path's shape, and its bound: the larger of the
 bytes it must move (inputs read once, outputs written once, as this run's
@@ -1164,6 +1179,136 @@ def streams_phase(card: str, dev) -> dict:
     }
 
 
+def write_phase(card: str, dev, row_groups: int = 1, drawn: int = 64) -> dict:
+    """Phase 18: the batched raw-stream encoder on the pages of the first
+    ``row_groups`` row groups of parquet_lineitem_write, one call a row
+    group. Returns K5's entry of the kernels line."""
+    import torch
+
+    from perfbench.data import parquet_lineitem
+    from perfbench.registry import Registry
+    from snappy_tpu_torch.cpu import streams_encode_reference
+    from snappy_tpu_torch.native import libsnappy
+    from snappy_tpu_torch.ops import cuda_encode, cuda_join, host, route
+    from snappy_tpu_torch.parallel import distributed
+    from snappy_tpu_torch.utils import profiling
+    from snappy_tpu_torch.utils.metrics import time_device_fn
+
+    t0 = time.perf_counter()
+    config = dict(Registry().config("parquet_lineitem_write"), resident_row_groups=row_groups)
+    groups = parquet_lineitem.row_groups(config, dev)
+    t_gen = time.perf_counter() - t0
+    rng = np.random.default_rng(180)
+    k2_launches = k5_launches = 0
+    for gi, group in enumerate(groups):
+        pages = len(group.ulens)
+        args = (torch.from_numpy(group.pages.copy()).to(dev), torch.from_numpy(group.out_starts).to(dev),
+                torch.from_numpy(group.ulens).to(dev))
+        before = profiling.counters()
+        comp, cstarts, clens = distributed.compress_streams(*args)
+        torch.cuda.synchronize()
+        moved = profiling.since(before)
+        if gi == 0:
+            k2_launches, k5_launches = moved["k2.launches"], moved["k5.launches"]
+        check(moved["k2.launches"] == 2 and moved["k5.launches"] == 1,
+              f"compress_streams launched K2 {moved['k2.launches']} and K5 {moved['k5.launches']} times for "
+              "one call, not one of each variant and one K5")
+        buf, starts, lens = comp.cpu().numpy(), cstarts.cpu().numpy(), clens.cpu().numpy()
+        check((lens > 0).all() and starts[0] == 0 and (starts[1:] == starts[:-1] + lens[:-1]).all(),
+              "the streams do not lie end to end, or a page was refused")
+        streams = [buf[s : s + n].tobytes() for s, n in zip(starts.tolist(), lens.tolist())]
+        raw = [group.pages[o : o + u].tobytes() for o, u in zip(group.out_starts.tolist(), group.ulens.tolist())]
+        # Every page against per-page compress with no block routed to the host.
+        t1 = time.perf_counter()
+        keep = route.host_blocks
+        route.host_blocks = lambda buf, blens: np.zeros(0, np.int64)
+        try:
+            for i, page in enumerate(raw):
+                check(host.compress(page, device=dev) == streams[i],
+                      f"row group {gi} page {i}: not compress's stream")
+        finally:
+            route.host_blocks = keep
+        t_compress = time.perf_counter() - t1
+        # Pages drawn across the columns against the plain reference.
+        t1 = time.perf_counter()
+        by_column: dict[str, list[int]] = {}
+        for i, c in enumerate(group.columns):
+            by_column.setdefault(c, []).append(i)
+        picks = [int(rng.choice(v)) for v in by_column.values()]
+        rest = np.setdiff1d(np.arange(pages), picks)
+        picks += rng.choice(rest, size=max(0, min(drawn, pages) - len(picks)), replace=False).tolist()
+        for i in picks:
+            page = torch.from_numpy(np.frombuffer(raw[i], np.uint8).copy()).to(dev)
+            check(streams_encode_reference.compress_page(page) == streams[i],
+                  f"row group {gi} page {i} ({group.columns[i]}): not the plain reference's stream")
+        t_ref = time.perf_counter() - t1
+        # Every stream decoded back: decompress_streams, then libsnappy.
+        out, ok = distributed.decompress_streams(comp, cstarts, clens, args[2], args[1], len(group.pages))
+        got = out.cpu().numpy()
+        check(bool(ok.all()), f"row group {gi}: decompress_streams refused a stream")
+        for i, (o, u) in enumerate(zip(group.out_starts.tolist(), group.ulens.tolist())):
+            check(np.array_equal(got[o : o + u], group.pages[o : o + u]), f"row group {gi} page {i}: decoded wrong")
+        gate = "libsnappy not installed: its gate did not run"
+        if libsnappy.available():
+            for i, s in enumerate(streams):
+                check(libsnappy.uncompress(s) == raw[i], f"row group {gi} page {i}: libsnappy decodes it wrong")
+            gate = f"all {pages} decoded by libsnappy"
+        print(f"[18 write] row group {gi}: {pages} pages, {len(group.pages)} bytes -> {int(lens.sum())} "
+              f"(ratio {int(lens.sum()) / int(group.ulens.sum()):.5f}); every page equal to unrouted compress "
+              f"({t_compress:.1f} s), {len(picks)} drawn pages over {len(by_column)} columns equal to the plain "
+              f"reference ({t_ref:.1f} s); decompress_streams gives every page back; {gate}", flush=True)
+
+    # Device times on the first row group, beside K5's bound.
+    group = groups[0]
+    args = (torch.from_numpy(group.pages.copy()).to(dev), torch.from_numpy(group.out_starts).to(dev),
+            torch.from_numpy(group.ulens).to(dev))
+    data, pages = args[0], len(group.ulens)
+    table = cuda_join.fragment_table(args[1], args[2], data.numel())
+    wide, narrow = table.wide, table.narrow
+    n_wide, n_narrow = int((wide[1] > 0).sum()), int((narrow[1] > 0).sum())
+    rows = len(wide[0]) + len(narrow[0])
+    frags = torch.empty((rows, cuda_encode.BLOCK_MAX_OUT), dtype=torch.uint8, device=dev)
+    olens = torch.empty(rows, dtype=torch.int32, device=dev)
+    k2w_ms = time_device_fn(cuda_encode.encode_fragments, (data, *wide, 2, 1 << 16, frags[: len(wide[0])],
+                                                           olens[: len(wide[0])]), iters=5, warmup=1) * 1e3
+    k2n_ms = time_device_fn(cuda_encode.encode_fragments, (data, *narrow, 2, 1 << 15, frags[len(wide[0]) :],
+                                                           olens[len(wide[0]) :]), iters=5, warmup=1) * 1e3
+    cap = cuda_join.stream_bound(pages, data.numel())
+    join_args = (frags, olens, table.frow, table.ffirst, table.fcount, args[2], cap)
+    k5_ms = time_device_fn(cuda_join.join_streams, join_args) * 1e3
+    call_ms = time_device_fn(distributed.compress_streams, args, iters=5, warmup=1) * 1e3
+    comp, cstarts, clens = cuda_join.join_streams(*join_args)
+    comp_bytes = int(clens.sum())
+    n_frags = int(table.total[0])
+    k5_bound = bound(comp_bytes - 5 * pages + 4 * n_frags, comp_bytes + 12 * pages)
+    plain = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in join_args)
+    plain_ms = time_device_fn(cuda_join.join_streams, plain, iters=1, warmup=0) * 1e3
+    wide_bytes, narrow_bytes = int(wide[1].long().sum()), int(narrow[1].long().sum())
+    print(f"[18 write] on {card}, one row group ({pages} pages, {int(group.ulens.sum())} page bytes, {n_frags} "
+          f"fragments: {n_wide} over 32 KiB ({wide_bytes} bytes) in K2's 64 KiB variant of {len(wide[0])} rows, "
+          f"{n_narrow} ({narrow_bytes} bytes) in its 32 KiB variant of {len(narrow[0])} rows): K2 {k2w_ms:.4f} + "
+          f"{k2n_ms:.4f} ms, K5 {k5_ms:.4f} ms (bound {k5_bound[0]:.4f}, {k5_bound[1]}; plain {plain_ms:.1f} ms), "
+          f"the whole call {call_ms:.4f} ms, {int(group.ulens.sum()) / call_ms / 1e6:.3f} GB/s; "
+          f"row groups made in {t_gen:.1f} s", flush=True)
+    return {
+        "name": "join_streams",
+        "route": "cuda",
+        "source": "snappy_tpu_torch/csrc/join_streams.cu",
+        "replaces": None,
+        "launches": k5_launches,
+        "ragged_k2_launches": k2_launches,
+        "max_abs_err": 0,
+        "ms": k5_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": k5_bound[0],
+        "bound_by": k5_bound[1],
+        "library_ms": None,
+        "ragged_k2_ms": [k2w_ms, k2n_ms],
+        "fragments": [n_wide, n_narrow],
+        "call_ms": call_ms,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1722,6 +1867,11 @@ def main() -> int:
     k4_entry = streams_phase(card, dev)
     print(f"[17 streams] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 18. the batched raw-stream encoder
+    t0 = time.perf_counter()
+    k5_entry = write_phase(card, dev)
+    print(f"[18 write] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "decode_blocks",
@@ -1768,7 +1918,7 @@ def main() -> int:
         "bound_ms": k3_bound[0],
         "bound_by": k3_bound[1],
         "library_ms": None,
-    }, k4_entry, *probe_entries]}), flush=True)
+    }, k4_entry, k5_entry, *probe_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
     return 0

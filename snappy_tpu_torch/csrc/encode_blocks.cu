@@ -8,6 +8,11 @@
 //        W - 8 <= 65536), blens i32[B], min_profit
 //   out: out u8[B, out_w] (the headerless tag stream, zero past olens),
 //        olens i32[B].
+// Its ragged entry (snappy_cuda_encode_fragments) reads each row in place
+// from one buffer instead: row r is the blens[r] bytes at starts[r], staged
+// into shared memory as a fixed row is, so the same bytes give the same
+// stream; a fragment that does not lie in the buffer is refused as a row
+// whose blen does not fit.
 // A row whose blen lies outside [0, W - 8] comes back with olens = -1 and
 // all zero. The rules are those of the plain version, ops/encode_torch.py:
 // a position p <= blen - 4 whose 4-byte key is not 0xFFFFFFFF takes the
@@ -313,16 +318,14 @@ __device__ __forceinline__ void emit_copy(uint8_t* dst, uint32_t d, uint32_t m, 
   }
 }
 
-// A variant that must hold two blocks an SM bounds its registers to half
-// the SM's (32 a thread at 1,024 threads). One block an SM states no
-// minimum (0): the compiler's own budget is 32 registers, where a minimum
-// of 1 lets it take 56 and runs the 64 KiB rows 0.5% slower.
+// One row of the batch by the whole block: the body of both kernels below.
+// Row r is a fixed row of `blocks` where `starts` is null, else the
+// fragment at starts[r] of a buffer of data_len bytes.
 template <int kBlockBits>
-__global__ void __launch_bounds__(Shape<kBlockBits>::kThreads,
-                                  Shape<kBlockBits>::kBlocksPerSm > 1 ? Shape<kBlockBits>::kBlocksPerSm : 0)
-encode_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict__ blens,
-                     int64_t row_w, int64_t out_w, int min_profit, uint8_t* __restrict__ out,
-                     int32_t* __restrict__ olens) {
+__device__ __forceinline__ void encode_row(const uint8_t* __restrict__ blocks, const int32_t* __restrict__ blens,
+                                           int64_t row_w, int64_t out_w, int min_profit, uint8_t* __restrict__ out,
+                                           int32_t* __restrict__ olens, const int64_t* __restrict__ starts,
+                                           int64_t data_len) {
   using S = Shape<kBlockBits>;
   constexpr int kThreads = S::kThreads, kWarps = S::kWarps, kHashBits = S::kHashBits, kChunk = S::kChunk;
   constexpr int64_t kMaxBlock = S::kMaxBlock, kRowBytes = S::kRowBytes, kLinkBytes = S::kLinkBytes;
@@ -338,14 +341,19 @@ encode_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restri
   const int tid = threadIdx.x;
   const int lane = tid % kWarp;
   const int warp = tid / kWarp;
-  const uint8_t* src = blocks + r * row_w;
+  // A fixed row lies at r * row_w; a fragment (starts given) at its start
+  // in a buffer of data_len bytes, where it is read in place.
+  const int64_t from = starts == nullptr ? r * row_w : starts[r];
+  const uint8_t* src = blocks + from;
   uint8_t* dst = out + r * out_w;
 
   // The wrapper does not read the lengths (that would wait for the
-  // stream): a row whose blen does not fit encodes nothing and comes back
-  // with olens = -1, all zero.
+  // stream): a row whose blen does not fit, or a fragment that does not
+  // lie in its buffer, encodes nothing and comes back with olens = -1, all
+  // zero.
   int64_t blen = blens[r];
-  const bool fits = blen >= 0 && blen <= row_w - kEncPad;
+  const bool fits = blen >= 0 && blen <= row_w - kEncPad &&
+                    (starts == nullptr || (from >= 0 && from <= data_len - blen));
   if (!fits) blen = 0;
   const int64_t nkeys = blen >= 4 ? blen - 3 : 0;
 
@@ -508,34 +516,78 @@ encode_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restri
   for (int64_t i = end + tid; i < out_w; i += kThreads) dst[i] = 0;
 }
 
+// A variant that must hold two blocks an SM bounds its registers to half
+// the SM's (32 a thread at 1,024 threads). One block an SM states no
+// minimum (0): the compiler's own budget is 32 registers, where a minimum
+// of 1 lets it take 56 and runs the 64 KiB rows 0.5% slower.
+#define SNAPPY_ENC_BOUNDS                          \
+  __launch_bounds__(Shape<kBlockBits>::kThreads, \
+                    Shape<kBlockBits>::kBlocksPerSm > 1 ? Shape<kBlockBits>::kBlocksPerSm : 0)
+
+// Fixed rows: row r at r * row_w of `blocks`.
+template <int kBlockBits>
+__global__ void SNAPPY_ENC_BOUNDS encode_blocks_kernel(const uint8_t* __restrict__ blocks,
+                                                       const int32_t* __restrict__ blens, int64_t row_w,
+                                                       int64_t out_w, int min_profit, uint8_t* __restrict__ out,
+                                                       int32_t* __restrict__ olens) {
+  encode_row<kBlockBits>(blocks, blens, row_w, out_w, min_profit, out, olens, nullptr, 0);
+}
+
+// Fragments read in place: row r at starts[r] of `data` (data_len bytes).
+template <int kBlockBits>
+__global__ void SNAPPY_ENC_BOUNDS encode_blocks_kernel(const uint8_t* __restrict__ data,
+                                                       const int32_t* __restrict__ blens, int64_t row_w,
+                                                       int64_t out_w, int min_profit, uint8_t* __restrict__ out,
+                                                       int32_t* __restrict__ olens, const int64_t* __restrict__ starts,
+                                                       int64_t data_len) {
+  encode_row<kBlockBits>(data, blens, row_w, out_w, min_profit, out, olens, starts, data_len);
+}
+
 }  // namespace
 
 extern "C" {
 
 using KernelFn = void (*)(const uint8_t*, const int32_t*, int64_t, int64_t, int, uint8_t*, int32_t*);
+using FragmentFn = void (*)(const uint8_t*, const int32_t*, int64_t, int64_t, int, uint8_t*, int32_t*,
+                            const int64_t*, int64_t);
 
-// The variant for rows of row_w bytes: its kernel, the shared memory a
-// block takes and its threads; cudaErrorInvalidValue for a width the
-// encoder does not take. A variant's attributes (its shared memory, the
-// carveout that fits its blocks an SM) are set once a device.
-static cudaError_t pick(int64_t row_w, KernelFn* kernel, int64_t* smem, int* threads) {
-  static unsigned long long ready[2];  // a bit a device, for 32 KiB and 64 KiB
+// The variant for rows of row_w bytes: its kernels (fixed rows and
+// fragments), the shared memory a block takes and its threads;
+// cudaErrorInvalidValue for a width the encoder does not take. A kernel's
+// attributes (its shared memory, the carveout that fits its blocks an SM)
+// are set once a device, when it is first picked.
+static cudaError_t pick(int64_t row_w, bool fragments, KernelFn* kernel, FragmentFn* fragment_kernel,
+                        int64_t* smem, int* threads) {
+  static unsigned long long ready[2][2];  // a bit a device, by kind, for 32 KiB and 64 KiB
   if (row_w < kEncPad || row_w - kEncPad > (int64_t(1) << kWidestBits)) return cudaErrorInvalidValue;
   const bool narrow = block_bits_for(row_w) == 15;
-  *kernel = narrow ? encode_blocks_kernel<15> : encode_blocks_kernel<16>;
+  if (narrow) {
+    *kernel = encode_blocks_kernel<15>;
+    *fragment_kernel = encode_blocks_kernel<15>;
+  } else {
+    *kernel = encode_blocks_kernel<16>;
+    *fragment_kernel = encode_blocks_kernel<16>;
+  }
   *smem = narrow ? Shape<15>::kSmemBytes : Shape<16>::kSmemBytes;
   *threads = narrow ? Shape<15>::kThreads : Shape<16>::kThreads;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const unsigned long long bit = 1ull << (dev & 63);
-  if (__atomic_load_n(&ready[narrow], __ATOMIC_ACQUIRE) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(*smem));
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(*kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               int(cudaSharedmemCarveoutMaxShared));
+  if (__atomic_load_n(&ready[fragments][narrow], __ATOMIC_ACQUIRE) & bit) return cudaSuccess;
+  const int carveout = int(cudaSharedmemCarveoutMaxShared);
+  if (fragments) {
+    err = cudaFuncSetAttribute(*fragment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(*smem));
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(*fragment_kernel, cudaFuncAttributePreferredSharedMemoryCarveout, carveout);
+    }
+  } else {
+    err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(*smem));
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(*kernel, cudaFuncAttributePreferredSharedMemoryCarveout, carveout);
+    }
   }
-  if (err == cudaSuccess) __atomic_fetch_or(&ready[narrow], bit, __ATOMIC_ACQ_REL);
+  if (err == cudaSuccess) __atomic_fetch_or(&ready[fragments][narrow], bit, __ATOMIC_ACQ_REL);
   return err;
 }
 
@@ -547,9 +599,10 @@ int snappy_cuda_encode_blocks(const void* blocks, const void* blens, int64_t row
   if (rows <= 0) return cudaSuccess;
   if (out_w < kBlockMaxOut) return cudaErrorInvalidValue;
   KernelFn kernel;
+  FragmentFn unused;
   int64_t smem;
   int threads;
-  cudaError_t err = pick(row_w, &kernel, &smem, &threads);
+  cudaError_t err = pick(row_w, false, &kernel, &unused, &smem, &threads);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(unsigned(rows)), threads, size_t(smem), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(blocks), static_cast<const int32_t*>(blens), row_w, out_w,
@@ -557,13 +610,37 @@ int snappy_cuda_encode_blocks(const void* blocks, const void* blens, int64_t row
   return cudaGetLastError();
 }
 
+// Launch the encoder over `rows` fragments of the buffer `data` (data_len
+// bytes) on `stream`: fragment r is the flens[r] bytes at fstarts[r], read
+// in place, of at most max_block bytes, which picks the variant as a row of
+// max_block + 8 bytes does. Returns the cudaError_t of the launch; does not
+// synchronise.
+int snappy_cuda_encode_fragments(const void* data, int64_t data_len, const void* fstarts, const void* flens,
+                                 int64_t rows, int64_t max_block, int64_t out_w, int min_profit, void* out,
+                                 void* olens, void* stream) {
+  if (rows <= 0) return cudaSuccess;
+  if (out_w < kBlockMaxOut) return cudaErrorInvalidValue;
+  KernelFn unused;
+  FragmentFn kernel;
+  int64_t smem;
+  int threads;
+  const int64_t row_w = max_block + kEncPad;
+  cudaError_t err = pick(row_w, true, &unused, &kernel, &smem, &threads);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(unsigned(rows)), threads, size_t(smem), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(data), static_cast<const int32_t*>(flens), row_w, out_w, min_profit,
+      static_cast<uint8_t*>(out), static_cast<int32_t*>(olens), static_cast<const int64_t*>(fstarts), data_len);
+  return cudaGetLastError();
+}
+
 // The shared memory a block of the variant for rows of row_w bytes takes,
 // and how many of its blocks one SM of the current device holds at once.
 int snappy_cuda_encode_blocks_occupancy(int64_t row_w, int* smem_bytes, int* blocks_per_sm) {
   KernelFn kernel;
+  FragmentFn unused;
   int64_t smem;
   int threads;
-  cudaError_t err = pick(row_w, &kernel, &smem, &threads);
+  cudaError_t err = pick(row_w, false, &kernel, &unused, &smem, &threads);
   if (err != cudaSuccess) return err;
   *smem_bytes = int(smem);
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads, size_t(smem));

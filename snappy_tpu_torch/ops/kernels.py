@@ -53,6 +53,11 @@ ENTRIES = {
     "encode_blocks": {
         "snappy_cuda_encode_blocks": (_INT, [_PTR, _PTR, _I64, _I64, _I64, _INT, _PTR, _PTR, _PTR]),
         "snappy_cuda_encode_blocks_occupancy": (_INT, [_I64, _PTR, _PTR]),
+        "snappy_cuda_encode_fragments": (_INT, [_PTR, _I64, _PTR, _PTR, _I64, _I64, _I64, _INT, _PTR, _PTR, _PTR]),
+    },
+    "join_streams": {
+        "snappy_cuda_join_streams": (
+            _INT, [_PTR, _I64, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64, _PTR, _I64, _PTR, _PTR, _PTR]),
     },
     "decode_blocks_r4": {
         "snappy_cuda_decode_blocks_r4": (_INT, _DECODE_ARGS),

@@ -22,7 +22,10 @@ with these functions on the devices it feeds.
 ``decompress_streams`` is the batched raw-stream decoder beside
 ``decompress_blocks``: many raw Snappy streams at any offsets of one buffer
 on one device, each decoded into its place in one output, as a columnar
-reader decodes every page of a row group.
+reader decodes every page of a row group. ``compress_streams`` is its
+encoder: many pages at any offsets of one buffer, each written as a raw
+stream, the streams end to end in one output, as a columnar writer
+compresses every page of a row group.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.config import DEFAULT_MIN_PROFIT
-from ..ops import cuda_decode, cuda_segment, select
+from ..ops import cuda_decode, cuda_encode, cuda_join, cuda_segment, select
 from ..ops.host import HostCopy, stage
 from ..utils.profiling import trace_annotation
 
@@ -191,6 +194,59 @@ def decompress_streams(comp: torch.Tensor, starts: torch.Tensor, clens: torch.Te
         out = torch.empty(out_len, dtype=torch.uint8, device=comp.device)
         cuda_decode.decode_segments(comp, rows, stats[:1], out, ok)
         return out, ok.view(torch.bool)
+
+
+def compress_streams(data: torch.Tensor, starts: torch.Tensor, ulens: torch.Tensor):
+    """Compress n pages that lie in one buffer into raw Snappy streams that
+    lie end to end in one output, in one call on the buffer's device.
+
+    ``data`` is uint8[N]; page i is the ``ulens[i]`` bytes (int32) at
+    ``starts[i]`` (int64; any offset). Returns (comp uint8[cap], cstarts
+    int64[n], clens int32[n]) on the same device, with ``cap`` =
+    ``cuda_join.stream_bound(n, N)``: stream i is ``comp[cstarts[i] :
+    cstarts[i] + clens[i]]``, the streams in page order with nothing between
+    them. Stream i is the varint of ``ulens[i]``, then K2's headerless
+    stream of each 64 KiB fragment of the page in turn, at
+    ``DEFAULT_MIN_PROFIT``: what ``ops/host.py::compress`` writes for the
+    page where it routes no block to the host. Nothing is routed here.
+
+    A page whose bytes do not lie in ``data``, or whose length is negative,
+    is refused: on the CPU the call raises ValueError; on a card its
+    ``clens`` is -1, it takes no bytes of ``comp``, and no other page moves
+    or is touched. So is a page whose fragments would pass the call's
+    fragment table, which only pages that overlap can reach (the CPU raises
+    there too). The bytes of ``comp`` past the last stream are not
+    specified.
+
+    Each page is cut into fragments on the device (``cuda_join.
+    fragment_table``); K2 encodes them in place in ``data``, the fragments
+    over 32 KiB in one launch of its 64 KiB variant and the others in one of
+    its 32 KiB variant (``cuda_encode.encode_fragments``; each launch sized
+    by a bound the host knows, rows past the real fragments empty), and K5
+    writes each page's header and joins its fragments' streams behind it
+    (``cuda_join.join_streams``). On a card nothing waits: the launches are
+    queued on the current stream. On the CPU the plain versions run. Runs in
+    the span ``streams.compress``; counts the pages under
+    ``streams.enc_streams`` and the fragments under
+    ``streams.enc_fragments`` (``cuda_join.count_call``)."""
+    with trace_annotation("streams.compress"):
+        n = cuda_encode.check_ranges(data, starts, ulens, ("starts", "ulens"))
+        table = cuda_join.fragment_table(starts, ulens, data.numel())
+        if data.device.type == "cpu" and bool((table.fcount < 0).any()):
+            raise ValueError("a page does not lie in data, has a negative length, or overlaps others past the bound")
+        wide, narrow = table.wide, table.narrow
+        rows = len(wide[0]) + len(narrow[0])
+        frags = torch.empty((rows, cuda_encode.BLOCK_MAX_OUT), dtype=torch.uint8, device=data.device)
+        olens = torch.empty(rows, dtype=torch.int32, device=data.device)
+        for (fstarts, flens), lo, hi, max_block in ((wide, 0, len(wide[0]), cuda_encode.MAX_BLOCK),
+                                                    (narrow, len(wide[0]), rows, cuda_join.NARROW)):
+            cuda_encode.encode_fragments(data, fstarts, flens, DEFAULT_MIN_PROFIT, max_block, frags[lo:hi],
+                                         olens[lo:hi])
+        cap = cuda_join.stream_bound(n, data.numel())
+        comp, cstarts, clens = cuda_join.join_streams(frags, olens, table.frow, table.ffirst, table.fcount, ulens,
+                                                      cap)
+        cuda_join.count_call(n, table.total)
+        return comp, cstarts, clens
 
 
 def to_host(sharded) -> list[HostCopy]:

@@ -80,7 +80,7 @@ _READ = (
 # K2's probes (``kernel_profile``).
 PROBES = [
     ("namespace {\n", _COUNTERS + _MARK + "namespace {\n"),
-    ("  const uint8_t* src = blocks + r * row_w;\n", "  const uint8_t* src = blocks + r * row_w;\n" + _BEGIN),
+    ("  const uint8_t* src = blocks + from;\n", "  const uint8_t* src = blocks + from;\n" + _BEGIN),
     ("  // 2. Hash chain", "  PROF_MARK(1);\n  // 2. Hash chain"),
     ("  // 3. Candidates", "  PROF_MARK(2);\n  // 3. Candidates"),
     ('extern "C" {\n', _READ),
